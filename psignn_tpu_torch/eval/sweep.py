@@ -1,0 +1,116 @@
+"""Growing-geometry sweep — the headline generalisation experiment.
+
+Port of ``build_data``, ``test_sample`` and ``growing_geometry_sweep``
+(``psignn_tpu/eval/sweep.py``), Ψ-GNN family only: for each radius, fresh
+blob meshes are FEM-solved for ground truth and every predictor is run and
+timed on them; per-radius means (and stds) of the metrics come back, and
+optionally go to ``{name}_results.csv``.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..data.fem import solve_poisson
+from ..data.meshgen import blob_mesh
+from ..data.reader import psignn_sample_from_fem
+from ..graphs import Graph, batch_graphs
+from .metrics import errors_batch
+
+
+def build_data(mesh, radius: float, rng=None) -> Dict[str, dict]:
+    """FEM-solve one mesh; ``{"psignn": graph sample}``."""
+    return {"psignn": psignn_sample_from_fem(solve_poisson(mesh, radius, rng))}
+
+
+def _timed(fn: Callable, graph: Graph):
+    """Wall-clock one prediction, synchronising the device on both ends."""
+    cuda = graph.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(graph.device)
+    t0 = time.perf_counter()
+    out = fn(graph)
+    if cuda:
+        torch.cuda.synchronize(graph.device)
+    return out, time.perf_counter() - t0
+
+
+def test_sample(predictors: Dict[str, Callable], graphs: Dict[str, Graph],
+                warmup: bool = True) -> Dict[str, Dict[str, float]]:
+    """Run and time each predictor on its graph.
+
+    ``predictors[name](graph)`` returns u or a tuple (u, nstep, lowest,
+    prot_break, ...) such as ``psignn_inference``'s."""
+    results = {}
+    for name, fn in predictors.items():
+        g = graphs["psignn"]
+        if warmup:
+            _timed(fn, g)
+        out, dt = _timed(fn, g)
+        u = out[0] if isinstance(out, tuple) else out
+        m = {k: float(v[0]) for k, v in errors_batch(u, g).items()}
+        results[name] = dict(
+            mse=m["mse"], res=m["res"], rel=m["rel"],
+            nstep=int(out[1]) if isinstance(out, tuple) else -1,
+            lowest=float(out[2]) if isinstance(out, tuple) else float("nan"),
+            prot_break=float(out[3]) if isinstance(out, tuple) else 0.0,
+            time=dt, n_nodes=int(g.n_nodes[0]), n_edges=int(g.n_edges[0]))
+    return results
+
+
+def growing_geometry_sweep(
+        predictors: Dict[str, Callable],
+        radii: Sequence[float] = (0.6, 1.0, 2.0, 4.0, 5.0),
+        n_meshes=3, hsize: float = 0.08, seed: int = 0,
+        out_dir: Optional[str] = None, device=None, warmup: bool = True
+        ) -> Dict[str, Dict[float, Dict[str, float]]]:
+    """The radius sweep: ``n_meshes`` (an int, or one count per radius)
+    fresh meshes per radius, every predictor on every mesh, means per
+    radius.  Graphs go to ``device`` (default: ``default_device()``)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    acc: Dict[str, Dict[float, List[Dict[str, float]]]] = {
+        name: {r: [] for r in radii} for name in predictors}
+    if isinstance(n_meshes, int):
+        counts = {r: n_meshes for r in radii}
+    else:
+        counts = {r: int(c) for r, c in zip(radii, n_meshes)}
+
+    for radius in radii:
+        for _ in range(counts[radius]):
+            mesh = blob_mesh(radius=radius, hsize=hsize, rng=rng)
+            data = build_data(mesh, radius, rng)
+            graphs = {k: batch_graphs([v], device=device)
+                      for k, v in data.items()}
+            for name, m in test_sample(predictors, graphs, warmup).items():
+                acc[name][radius].append(m)
+
+    summary: Dict[str, Dict[float, Dict[str, float]]] = {}
+    for name, per_radius in acc.items():
+        summary[name] = {}
+        for r, items in per_radius.items():
+            keys = items[0].keys()
+            summary[name][r] = {k: float(np.mean([it[k] for it in items]))
+                                for k in keys}
+            summary[name][r].update({k + "_std":
+                                     float(np.std([it[k] for it in items]))
+                                     for k in keys})
+
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        for name, per_radius in summary.items():
+            rs = sorted(per_radius.keys())
+            with open(os.path.join(out_dir, f"{name}_results.csv"), "w") as f:
+                f.write("metric," + ",".join(str(r) for r in rs) + "\n")
+                for metric in ["n_nodes", "mse", "res", "rel", "nstep",
+                               "time"]:
+                    f.write(metric + "," + ",".join(
+                        "{:.6g}".format(per_radius[r][metric]) for r in rs)
+                        + "\n")
+    return summary

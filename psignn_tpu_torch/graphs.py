@@ -1,0 +1,105 @@
+"""Batched mesh graphs as torch tensors on one device.
+
+Port of ``PaddedGraph`` / ``batch_graphs`` (``psignn_tpu/graphs.py``).  The
+JAX package pads every batch to bucketed capacities because XLA needs
+static shapes; PyTorch runs eagerly, so a batch here is the plain
+concatenation of its samples and every row is real.  The masks the model
+reads (``fnode_mask``, ``dirichlet_mask``) are built once per batch.
+
+Conventions as in the JAX package: ``senders[e], receivers[e]`` are the
+COO row/col of the e-th nonzero of A, so ``A[senders, receivers] = a_ij``.
+Message passing drops self-loops; the SpMV residual keeps the diagonal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .kernels.fused_mp import MPCsr, pack_csr
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """A batch of mesh graphs, concatenated (no padding)."""
+    # --- node data (N rows) ---
+    x: torch.Tensor               # (N, 1) initial condition (0 inside, b on Dirichlet)
+    b: torch.Tensor               # (N, 1) right-hand side of A u = b
+    sol: torch.Tensor             # (N, 1) FEM solution (reporting only)
+    prb_data: torch.Tensor        # (N, 2) normalised problem data [f, g]
+    tags: torch.Tensor            # (N, 1) 1 on Dirichlet nodes
+    pos: torch.Tensor             # (N, 2) vertex coordinates
+    fnode_mask: torch.Tensor      # (N, 1) float, 1 on real nodes (all, unpadded)
+    dirichlet_mask: torch.Tensor  # (N, 1) float, 1 on Dirichlet nodes
+    graph_id: torch.Tensor        # (N,) int64 graph of each node
+    # --- edge data (E rows, COO over the nonzeros of A) ---
+    senders: torch.Tensor         # (E,) int64 row index i
+    receivers: torch.Tensor       # (E,) int64 col index j
+    a_ij: torch.Tensor            # (E, 1) A[i, j]
+    edge_attr: torch.Tensor       # (E, 3) normalised [dx, dy, |d|]
+    # --- per graph ---
+    n_nodes: torch.Tensor         # (G,) int64
+    n_edges: torch.Tensor         # (G,) int64
+    # --- CSR packings for the fused message-passing kernel ---
+    mp_to: MPCsr                  # aggregation at receivers
+    mp_from: MPCsr                # aggregation at senders
+    num_graphs: int = 1
+
+    @property
+    def total_nodes(self) -> int:
+        """Node count across the batch (every row is real)."""
+        return self.x.shape[0]
+
+    @property
+    def mp_edge_mask(self) -> torch.Tensor:
+        """(E,) bool: edges that message passing uses (self-loops removed)."""
+        return self.senders != self.receivers
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+
+def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
+                 dtype=np.float32) -> Graph:
+    """Concatenate per-sample numpy dicts (``data.reader`` format) into one
+    Graph on ``device`` (default: ``default_device()``).  Index arrays are
+    per-sample local and are offset here."""
+    device = resolve_device(device)
+
+    def cat(key, width, dt=dtype):
+        return np.concatenate([np.asarray(s[key], dt).reshape(-1, width)
+                               for s in samples])
+
+    n_nodes = np.array([s["x"].shape[0] for s in samples], np.int64)
+    n_edges = np.array([s["senders"].shape[0] for s in samples], np.int64)
+    node_off = np.concatenate([[0], np.cumsum(n_nodes)[:-1]])
+    senders = np.concatenate([np.asarray(s["senders"], np.int64) + o
+                              for s, o in zip(samples, node_off)])
+    receivers = np.concatenate([np.asarray(s["receivers"], np.int64) + o
+                                for s, o in zip(samples, node_off)])
+    total = int(n_nodes.sum())
+    tags = cat("tags", 1)
+    edge_attr = cat("edge_attr", 3)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return Graph(
+        x=t(cat("x", 1)), b=t(cat("b", 1)), sol=t(cat("sol", 1)),
+        prb_data=t(cat("prb_data", 2)), tags=t(tags), pos=t(cat("pos", 2)),
+        fnode_mask=t(np.ones((total, 1), dtype)),
+        dirichlet_mask=t((tags[:, :1] == 1).astype(dtype)),
+        graph_id=t(np.repeat(np.arange(len(samples)), n_nodes)),
+        senders=t(senders), receivers=t(receivers),
+        a_ij=t(cat("a_ij", 1)), edge_attr=t(edge_attr),
+        n_nodes=t(n_nodes), n_edges=t(n_edges),
+        mp_to=pack_csr(senders, receivers, edge_attr, total, "to",
+                       device=device),
+        mp_from=pack_csr(senders, receivers, edge_attr, total, "from",
+                         device=device),
+        num_graphs=len(samples))

@@ -1,0 +1,37 @@
+"""Shared inputs for the JAX ↔ PyTorch parity tests (``test_torch_*.py``).
+
+Every input is made with numpy from a seed and handed to both packages;
+JAX stays on the CPU (tests/conftest.py), torch runs with device="cpu".
+"""
+
+import numpy as np
+
+CKPT = "results/psignn_dirichlet/ckpt/best_model.ckpt"
+
+
+def fem_sample(seed: int, radius: float = 1.0, hsize: float = 0.2):
+    """One Ψ-GNN graph sample from the port's own data path."""
+    from psignn_tpu_torch.data.fem import solve_poisson
+    from psignn_tpu_torch.data.meshgen import blob_mesh
+    from psignn_tpu_torch.data.reader import psignn_sample_from_fem
+    rng = np.random.default_rng(seed)
+    mesh = blob_mesh(radius=radius, hsize=hsize, rng=rng)
+    return psignn_sample_from_fem(solve_poisson(mesh, radius, rng))
+
+
+def jax_mlp_params(rng: np.random.Generator, channels):
+    """A JAX-layout MLP parameter list ``[{"w": (in, out), "b": (out,)}]``
+    with Xavier-scaled weights and nonzero biases."""
+    out = []
+    for a, b in zip(channels[:-1], channels[1:]):
+        lim = np.sqrt(6.0 / (a + b))
+        out.append({"w": rng.uniform(-lim, lim, (a, b)).astype(np.float32),
+                    "b": rng.uniform(-0.1, 0.1, (b,)).astype(np.float32)})
+    return out
+
+
+def load_trained():
+    """(numpy parameter tree, hyperparameters) of the trained Ψ-GNN."""
+    from psignn_tpu_torch.weights import load_jax_checkpoint
+    ck = load_jax_checkpoint(CKPT)
+    return ck["params"], dict(ck["hyperparameters"])
