@@ -5,20 +5,35 @@
 
 Phases, each printing one JSON line:
 
-1. device   — a CUDA device is required; its name, count, power limit.
-2. build    — compile the CUDA kernel from ``psignn_tpu_torch/kernels/csrc``.
-3. kernel   — on the radius-5 headline mesh, the fused message-passing
-              kernel against its plain PyTorch version on the card, both
-              directions, edge_dim 3 and 1: max error, bit-identical
-              relaunch, per-call times, the bound.
-4. slice    — the main path as a user runs it: the trained Ψ-GNN checkpoint
-              through ``eval.run_eval.load_predictor`` and
-              ``eval.sweep.growing_geometry_sweep`` on one mesh at each of
-              radii 1, 2 and 5, counting kernel launches; then the
-              radius-1 request again on the CPU to check agreement.
-5. headline — 531 Broyden iterations (fw_tol 0) on the radius-5 mesh with
-              seeded random weights: wall seconds, edge-messages/s and the
-              kernel launches of each timed run (two per f_θ call).
+1. device     — a CUDA device is required; its name, count, power limit.
+2. build      — compile both CUDA kernels from
+                ``psignn_tpu_torch/kernels/csrc``, one ``nvcc`` each, in
+                parallel.
+3. kernel     — the forward fused message-passing kernel against its
+                plain PyTorch version on the card, both directions, on the
+                radius-5 headline mesh at edge_dim 3 and 1 and on the
+                train step's 50-mesh batch: max error, bit-identical
+                relaunch, per-call times, the bound.
+4. kernel_bwd — the same for the backward kernel (the VJP), against
+                ``mp_vjp_from_csr``, every output.
+5. slice      — inference as a user runs it: the trained Ψ-GNN checkpoint
+                through ``eval.run_eval.load_predictor`` and
+                ``eval.sweep.growing_geometry_sweep`` on one mesh at each of
+                radii 1, 2 and 5, counting kernel launches; then the
+                radius-1 request again on the CPU to check agreement.
+6. headline   — 531 Broyden iterations (fw_tol 0) on the radius-5 mesh with
+                seeded random weights: wall seconds, edge-messages/s and the
+                kernel launches of each timed run (two per f_θ call).
+7. train_step — the implicit-gradient train step of ``bench.py:110-200``
+                through ``train.train_step``: 50 seeded radius-1 meshes in
+                one batch, the trained weights, a warm-up and three timed
+                steps from one starting state with their kernel launches,
+                one profiled step, and a 2-mesh step on the GPU against the
+                same step on the CPU.
+8. trainer    — training as a user runs it: a fresh dataset from
+                ``data.generate``, one epoch of ``cli.main``, its logs and
+                checkpoints, and one sweep request answered from the new
+                ``best_model.ckpt`` by ``load_predictor``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
 line, and the last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -50,6 +65,10 @@ PEAK_F32_FLOPS = 67e12
 # before W2 and adds deg·b2, the plain version applies W2 per edge and
 # sums after — the same math in another f32 order.
 KERNEL_REL_TOL = 1e-5
+# Backward kernel vs plain version, each output: the same math in another
+# f32 order again (per-row register sums and fixed-order tree reductions
+# vs index_add_ and BLAS over the edges).
+BWD_KERNEL_REL_TOL = 1e-5
 # CPU agreement of the radius-1 request.  At a reachable fw_tol the stopping
 # step comes before f32 reduction-order differences grow (Broyden near its
 # plateau is chaotic: the JAX package and the port, both on the CPU, stop at
@@ -59,6 +78,24 @@ REACHABLE_TOL = 1e-3
 NSTEP_SLACK = 2
 LOWEST_REL_TOL = 0.05
 RES_REL_TOL = 0.01
+# Train step (bench.py:147-173): 50 radius-1 meshes, the trained weights,
+# canonical solver knobs and optimizers.
+TRAIN_MESHES = 50
+TRAIN_OVERRIDES = dict(fw_tol=1e-5, fw_thres=500, bw_tol=1e-8, bw_thres=500)
+TRAIN_LRS = (0.01, 0.05)
+TRAIN_CLIP = 0.1
+TRAIN_JAC_WEIGHT = 1.0
+# GPU vs CPU step on 2 meshes.  Near its f32 floor Broyden is chaotic
+# under f32 summation order, so the two stop at other steps; and the
+# iteration contracts slowly, so (I - J)^-1 amplifies a solve's stopping
+# residual into the loss and the gradient.  Both solves therefore run to
+# their f32 floor (relative residual ~1e-7) and the answers are compared,
+# not the step counts: 1e-3 on each loss entry and 5e-3 on each
+# parameter's gradient, as a relative norm.
+CMP_MESHES = 2
+CMP_OVERRIDES = dict(fw_tol=1e-7, fw_thres=800, bw_tol=1e-8, bw_thres=800)
+CMP_LOSS_RTOL = 1e-3
+CMP_GRAD_RTOL = 5e-3
 
 
 def emit(phase: str, **kw) -> None:
@@ -88,9 +125,11 @@ def cuda_ms(fn, reps: int = 200, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int = 50) -> float | None:
-    """Device time per launch of the fused kernel from ``torch.profiler``,
-    or None when the profiler records no device time on this machine."""
+def kernel_device_ms(fn, name: str = "fused_mp_fwd_kernel",
+                     reps: int = 50) -> float | None:
+    """Device time per ``fn()`` call of the kernels whose name contains
+    ``name``, from ``torch.profiler``, or None when the profiler records no
+    device time on this machine."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -99,14 +138,14 @@ def kernel_device_ms(fn, reps: int = 50) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    total = 0.0
     for ev in prof.key_averages():
-        if "fused_mp_fwd_kernel" in ev.key:
+        if name in ev.key:
             us = getattr(ev, "device_time_total", None)
             if us is None:
                 us = getattr(ev, "cuda_time_total", 0.0)
-            if us and ev.count:
-                return us / ev.count / 1000.0
-    return None
+            total += us or 0.0
+    return total / reps / 1000.0 if total else None
 
 
 def fused_mp_bound(n: int, e: int, d: int, dh: int, d_out: int,
@@ -121,6 +160,30 @@ def fused_mp_bound(n: int, e: int, d: int, dh: int, d_out: int,
     flops = (n * 2 * (2 * d * dh)                 # W1a·h, W1b·h per node
              + e * dh * (2 * edge_dim + 4)         # W1c·ea, +b1, +ha+hb, relu, sum
              + n * (2 * dh * d_out + 2 * d_out))   # W2·acc + deg·b2
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_F32_FLOPS
+    bound = max(t_bytes, t_ops)
+    return bound * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
+        float(nbytes), float(flops)
+
+
+def fused_mp_bwd_bound(n: int, e: int, d: int, dh: int, d_out: int,
+                       edge_dim: int) -> tuple[float, str, float, float]:
+    """(bound_ms, bound_by, bytes, flops) of one VJP of the fused MP: h, g,
+    the CSR and the weights read once, dh and the parameter gradients
+    written once; operations of its cheapest form — the forward's
+    pre-activations again, W2ᵀ·g once per row, per edge the ReLU mask, the
+    dha and dhb sums, dW1c and db1, per row A_r and the dW2, db2 products,
+    and the dense dh = dha·W1a + dhb·W1b, dW1a = hᵀ·dha, dW1b = hᵀ·dhb."""
+    weights = dh * (2 * d + edge_dim) + dh + d_out * dh
+    nbytes = 4 * (n * d + n * d_out + (n + 1) + e + e * edge_dim + weights
+                  + n * d + weights + d_out)
+    flops = (n * 2 * (2 * d * dh)                  # W1a·h, W1b·h per node
+             + e * dh * (2 * edge_dim + 4)          # pre, ReLU, Σ relu (A_r)
+             + n * 2 * dh * d_out                   # W2ᵀ·g per row
+             + e * dh * (4 + 2 * edge_dim)          # mask, dha, dhb, db1, dW1c
+             + n * (2 * d_out * dh + 2 * d_out)     # dW2, db2
+             + 4 * n * 2 * d * dh)                  # dh (2), dW1a, dW1b
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_F32_FLOPS
     bound = max(t_bytes, t_ops)
@@ -151,64 +214,90 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Both kernels, one ``nvcc`` each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from psignn_tpu_torch.kernels import build
+    names = ("fused_mp_fwd", "fused_mp_bwd")
     t0 = time.perf_counter()
-    res = build.build("fused_mp_fwd")
-    ptxas = [ln.strip() for ln in res.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", kernel="fused_mp_fwd", seconds=time.perf_counter() - t0,
-         nvcc_seconds=res.seconds, library=str(res.path.name), ptxas=ptxas)
+    with ThreadPoolExecutor(len(names)) as pool:
+        results = list(pool.map(build.build, names))
+    wall = time.perf_counter() - t0
+    for name, res in zip(names, results):
+        ptxas = [ln.strip() for ln in res.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit("build", kernel=name, seconds=wall, nvcc_seconds=res.seconds,
+             library=str(res.path.name), ptxas=ptxas)
 
 
-def phase_kernel(graph, sample, device) -> dict:
-    """Kernel vs plain on the card at the main path's shapes."""
-    from psignn_tpu_torch.kernels.fused_mp import (fused_message_passing,
-                                                   mp_from_csr, pack_csr)
-    from psignn_tpu_torch.nn import MLP
-    D = 10
-    gen = torch.Generator().manual_seed(0)
-    h = torch.randn(graph.total_nodes, D, generator=gen).to(device)
+def mp_cases(graph, sample, tgraph, device):
+    """(mesh, edge_dim, direction, csr) of each kernel check, at the main
+    paths' shapes: the radius-5 headline mesh at edge_dim 3 and at DSS's
+    1-dim edge feature (the matrix value a_ij), then the train step's
+    50-mesh batch."""
+    from psignn_tpu_torch.kernels.fused_mp import pack_csr
     n = graph.total_nodes
     cases = []
-    main_entry = None
     for edge_dim in (3, 1):
-        mlp = MLP([2 * D + edge_dim, D, D], generator=gen).to(device)
-        l1, l2 = mlp.layers
         for direction in ("to", "from"):
             if edge_dim == 3:
                 csr = graph.mp_to if direction == "to" else graph.mp_from
             else:
-                # DSS's 1-dim edge feature (the matrix value a_ij)
                 csr = pack_csr(sample["senders"], sample["receivers"],
                                sample["a_ij"], n, direction, device=device)
-            args = (l1.weight, l1.bias, l2.weight, l2.bias, h, csr)
-            with torch.no_grad():
-                out1 = fused_message_passing(*args)
-                out2 = fused_message_passing(*args)
-                ref = mp_from_csr(*args)
-                torch.cuda.synchronize()
-                err = float((out1 - ref).abs().max())
-                scale = float(ref.abs().max())
-                identical = bool(torch.equal(out1, out2))
-                ms = cuda_ms(lambda: fused_message_passing(*args))
-                plain_ms = cuda_ms(lambda: mp_from_csr(*args))
-                dev_ms = kernel_device_ms(lambda: fused_message_passing(*args))
-            bound_ms, bound_by, nbytes, flops = fused_mp_bound(
-                n, csr.n_edges, D, D, D, edge_dim)
-            case = dict(direction=direction, edge_dim=edge_dim, n_rows=n,
-                        n_edges=csr.n_edges, max_abs_err=err,
-                        max_rel_err=err / max(scale, 1e-30),
-                        bit_identical=identical, ms=ms, device_ms=dev_ms,
-                        plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, bytes=nbytes, flops=flops)
-            emit("kernel", **case)
-            if not identical:
-                raise RuntimeError(f"fused_mp relaunch differs: {case}")
-            if not err <= KERNEL_REL_TOL * max(1.0, scale):
-                raise RuntimeError(f"fused_mp disagrees with plain: {case}")
-            cases.append(case)
-            if edge_dim == 3 and direction == "to":
-                main_entry = case
+            cases.append(("headline", edge_dim, direction, csr))
+    cases += [("train", 3, "to", tgraph.mp_to),
+              ("train", 3, "from", tgraph.mp_from)]
+    return cases
+
+
+def phase_kernel(graph, sample, tgraph, device) -> dict:
+    """Forward kernel vs plain on the card at the main paths' shapes; the
+    ``kernels`` line reports the headline mesh's ``to`` case."""
+    from psignn_tpu_torch.kernels.fused_mp import (fused_message_passing,
+                                                   mp_from_csr)
+    from psignn_tpu_torch.nn import MLP
+    D = 10
+    gen = torch.Generator().manual_seed(0)
+    hs = {"headline": torch.randn(graph.total_nodes, D, generator=gen)}
+    mlps = {k: MLP([2 * D + k, D, D], generator=gen).to(device).layers
+            for k in (3, 1)}
+    hs["train"] = torch.randn(tgraph.total_nodes, D, generator=gen)
+    cases = []
+    main_entry = None
+    for mesh, edge_dim, direction, csr in mp_cases(graph, sample, tgraph,
+                                                   device):
+        l1, l2 = mlps[edge_dim]
+        h = hs[mesh].to(device)
+        n = h.shape[0]
+        args = (l1.weight, l1.bias, l2.weight, l2.bias, h, csr)
+        with torch.no_grad():
+            out1 = fused_message_passing(*args)
+            out2 = fused_message_passing(*args)
+            ref = mp_from_csr(*args)
+            torch.cuda.synchronize()
+            err = float((out1 - ref).abs().max())
+            scale = float(ref.abs().max())
+            identical = bool(torch.equal(out1, out2))
+            ms = cuda_ms(lambda: fused_message_passing(*args))
+            plain_ms = cuda_ms(lambda: mp_from_csr(*args))
+            dev_ms = kernel_device_ms(lambda: fused_message_passing(*args))
+        bound_ms, bound_by, nbytes, flops = fused_mp_bound(
+            n, csr.n_edges, D, D, D, edge_dim)
+        case = dict(mesh=mesh, direction=direction, edge_dim=edge_dim,
+                    n_rows=n, n_edges=csr.n_edges, max_abs_err=err,
+                    max_rel_err=err / max(scale, 1e-30),
+                    bit_identical=identical, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, bytes=nbytes, flops=flops)
+        emit("kernel", **case)
+        if not identical:
+            raise RuntimeError(f"fused_mp relaunch differs: {case}")
+        if not err <= KERNEL_REL_TOL * max(1.0, scale):
+            raise RuntimeError(f"fused_mp disagrees with plain: {case}")
+        cases.append(case)
+        if (mesh, edge_dim, direction) == ("headline", 3, "to"):
+            main_entry = case
     return dict(
         name="fused_mp_fwd", route="cuda",
         source="psignn_tpu_torch/kernels/csrc/fused_mp_fwd.cu",
@@ -334,6 +423,268 @@ def phase_headline(graph, sample, device, smi: str) -> None:
          **device_breakdown(run))
 
 
+def phase_kernel_bwd(graph, sample, tgraph, device) -> dict:
+    """Backward kernel vs plain on the card at the main paths' shapes; the
+    ``kernels`` line reports the train batch's ``to`` case, the shapes of
+    the train step whose launches it counts."""
+    from psignn_tpu_torch.kernels.fused_mp import fused_mp_vjp, mp_vjp_from_csr
+    from psignn_tpu_torch.nn import MLP
+    D = 10
+    names = ("dw1", "db1", "dw2", "db2", "dh")
+    gen = torch.Generator().manual_seed(1)
+    n = graph.total_nodes
+    hgs = {"headline": (torch.randn(n, D, generator=gen),
+                        torch.randn(n, D, generator=gen))}
+    mlps = {k: MLP([2 * D + k, D, D], generator=gen).to(device).layers
+            for k in (3, 1)}
+    n = tgraph.total_nodes
+    hgs["train"] = (torch.randn(n, D, generator=gen),
+                    torch.randn(n, D, generator=gen))
+    cases = []
+    main_entry = None
+    for mesh, edge_dim, direction, csr in mp_cases(graph, sample, tgraph,
+                                                   device):
+        l1, l2 = mlps[edge_dim]
+        h, g = (t.to(device) for t in hgs[mesh])
+        n = h.shape[0]
+        args = (l1.weight, l1.bias, l2.weight, l2.bias, h, csr, g)
+        with torch.no_grad():
+            out1 = fused_mp_vjp(*args)
+            out2 = fused_mp_vjp(*args)
+            ref = mp_vjp_from_csr(*args)
+            torch.cuda.synchronize()
+            errs = {k: float((a - b).abs().max())
+                    for k, a, b in zip(names, out1, ref)}
+            scales = {k: float(b.abs().max()) for k, b in zip(names, ref)}
+            identical = all(torch.equal(a, b) for a, b in zip(out1, out2))
+            ms = cuda_ms(lambda: fused_mp_vjp(*args))
+            plain_ms = cuda_ms(lambda: mp_vjp_from_csr(*args))
+            dev_ms = kernel_device_ms(lambda: fused_mp_vjp(*args),
+                                      "fused_mp_bwd_")
+        bound_ms, bound_by, nbytes, flops = fused_mp_bwd_bound(
+            n, csr.n_edges, D, D, D, edge_dim)
+        case = dict(mesh=mesh, direction=direction, edge_dim=edge_dim,
+                    n_rows=n, n_edges=csr.n_edges, max_abs_err=errs,
+                    max_rel_err={k: errs[k] / max(scales[k], 1e-30)
+                                 for k in names},
+                    bit_identical=identical, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, bytes=nbytes, flops=flops,
+                    library_ms=None)
+        emit("kernel_bwd", **case)
+        if not identical:
+            raise RuntimeError(f"fused_mp_bwd relaunch differs: {case}")
+        bad = [k for k in names
+               if not errs[k] <= BWD_KERNEL_REL_TOL * max(1.0, scales[k])]
+        if bad:
+            raise RuntimeError(f"fused_mp_bwd disagrees with plain in "
+                               f"{bad}: {case}")
+        cases.append(case)
+        if (mesh, edge_dim, direction) == ("train", 3, "to"):
+            main_entry = case
+    return dict(
+        name="fused_mp_bwd", route="cuda",
+        source="psignn_tpu_torch/kernels/csrc/fused_mp_bwd.cu",
+        replaces="psignn_tpu/kernels/fused_mp.py:429",
+        launches=None,
+        max_abs_err=max(max(c["max_abs_err"].values()) for c in cases),
+        ms=main_entry["ms"], plain_ms=main_entry["plain_ms"],
+        bound_ms=main_entry["bound_ms"], bound_by=main_entry["bound_by"],
+        library_ms=None)
+
+
+def train_graph(n_meshes: int, seed: int, device):
+    """``bench.py``'s training batch: seeded radius-1 blob meshes (hsize
+    0.08), FEM-solved, concatenated into one graph."""
+    from psignn_tpu_torch.data.fem import solve_poisson
+    from psignn_tpu_torch.data.meshgen import blob_mesh
+    from psignn_tpu_torch.data.reader import psignn_sample_from_fem
+    from psignn_tpu_torch.graphs import batch_graphs
+    rng = np.random.default_rng(seed)
+    samples = []
+    for _ in range(n_meshes):
+        mesh = blob_mesh(radius=1.0, hsize=0.08, rng=rng)
+        samples.append(psignn_sample_from_fem(solve_poisson(mesh, 1.0, rng)))
+    return batch_graphs(samples, device=device)
+
+
+def trained_model(device, overrides):
+    """(model, cfg, initial state dict) of the trained checkpoint."""
+    from psignn_tpu_torch.weights import load_psignn_checkpoint
+    model, cfg = load_psignn_checkpoint(CKPT, device, overrides)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    return model, cfg, init
+
+
+def step_from(model, cfg, init, graph, seed: int = 7):
+    """One ``train_step`` from the state ``init`` with fresh optimizers and
+    probes from ``seed``, timed by the host clock around it."""
+    from psignn_tpu_torch.train import make_optimizers, train_step
+    model.load_state_dict(init)
+    opts = make_optimizers(model, *TRAIN_LRS)
+    gen = torch.Generator().manual_seed(seed)
+    if graph.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_step(model, opts, graph, cfg, TRAIN_LRS, TRAIN_CLIP,
+                     TRAIN_JAC_WEIGHT, gen)
+    if graph.device.type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def forward_seconds(model, cfg, init, graph, seed: int = 7) -> float:
+    """Host seconds of the step's forward alone (``psignn_forward`` with its
+    losses, no backward) from the state ``init``."""
+    from psignn_tpu_torch.models import psignn_forward
+    model.load_state_dict(init)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = psignn_forward(model, graph, cfg,
+                         torch.Generator().manual_seed(seed))
+    torch.stack(list(out.losses.values())).cpu()
+    return time.perf_counter() - t0
+
+
+def expected_launches(res) -> tuple[int, int]:
+    """(forward, backward) kernel launches one train step implies: two per
+    f_θ call — the forward solve's calls, the tracked application and the
+    Jacobian loss's; and two per VJP of f_θ — each adjoint iteration's, the
+    route of the adjoint solution into the parameters, the Hutchinson VJP
+    and its own second-order backward through f_θ's forward."""
+    return 2 * (res.fw.calls + 2), 2 * (res.bw.calls + 3)
+
+
+def phase_train_step(graph, graph_s: float, device, smi: str) -> int:
+    """``graph`` is ``train_graph(TRAIN_MESHES, 0, device)``, built in
+    ``graph_s`` seconds."""
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    t0 = time.perf_counter()
+    model, cfg, init = trained_model(device, TRAIN_OVERRIDES)
+    setup_s = graph_s + time.perf_counter() - t0
+
+    step_from(model, cfg, init, graph)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(3):
+        mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+        res, wall = step_from(model, cfg, init, graph)
+        launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
+        want = expected_launches(res)
+        rec = dict(seconds=wall, loss=res.loss, losses=res.losses,
+                   grad_norm=res.grad_norm, fw_nstep=res.fw.nstep,
+                   fw_calls=res.fw.calls, fw_lowest=res.fw.lowest,
+                   bw_nstep=res.bw.nstep, bw_calls=res.bw.calls,
+                   bw_lowest=res.bw.lowest, fwd_launches=launches[0],
+                   bwd_launches=launches[1], expected_launches=list(want))
+        steps.append(rec)
+        finite = all(np.isfinite(v) for v in
+                     [res.loss, res.grad_norm, *res.losses.values()])
+        if not finite or launches != want or 0 in launches:
+            raise RuntimeError(f"train step failed: {rec}")
+    best = min(r["seconds"] for r in steps)
+    forward_s = forward_seconds(model, cfg, init, graph)
+    emit("train_step", card=smi, n_meshes=TRAIN_MESHES,
+         n_nodes=graph.total_nodes, n_edges=int(graph.senders.shape[0]),
+         mp_edges=graph.mp_to.n_edges, setup_s=setup_s, step_s=best,
+         step_s_all=[r["seconds"] for r in steps], forward_s=forward_s,
+         backward_share=1.0 - forward_s / best,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), steps=steps)
+    emit("train_step_profile", card=smi, unprofiled_step_s=best,
+         **device_breakdown(lambda: step_from(model, cfg, init, graph)))
+    phase_train_step_cpu_agreement(device)
+    return steps[0]["bwd_launches"]
+
+
+def phase_train_step_cpu_agreement(device) -> None:
+    """The same step on 2 meshes on the GPU and on the CPU."""
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        graph = train_graph(CMP_MESHES, 1, dev)
+        model, cfg, init = trained_model(dev, CMP_OVERRIDES)
+        res, _ = step_from(model, cfg, init, graph)
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+        out[dev.type] = (res, grads)
+    (gpu, ggrad), (cpu, cgrad) = out["cuda"], out["cpu"]
+    loss_rel = {k: abs(gpu.losses[k] - cpu.losses[k])
+                / max(abs(cpu.losses[k]), 1e-30)
+                for k in ("residual_loss", "jacobian_loss", "encoder_loss",
+                          "autoencoder_loss", "mse_loss")}
+    grad_rel = {k: float(torch.linalg.vector_norm(ggrad[k] - cgrad[k])
+                         / max(float(torch.linalg.vector_norm(cgrad[k])),
+                               1e-30))
+                for k in cgrad}
+    rec = dict(overrides=CMP_OVERRIDES, n_meshes=CMP_MESHES,
+               gpu=dict(loss=gpu.loss, grad_norm=gpu.grad_norm,
+                        fw=list(gpu.fw), bw=list(gpu.bw)),
+               cpu=dict(loss=cpu.loss, grad_norm=cpu.grad_norm,
+                        fw=list(cpu.fw), bw=list(cpu.bw)),
+               loss_rel_diff=loss_rel, max_loss_rel_diff=max(loss_rel.values()),
+               max_grad_rel_diff=max(grad_rel.values()),
+               worst_grad=max(grad_rel, key=grad_rel.get),
+               loss_rtol=CMP_LOSS_RTOL, grad_rtol=CMP_GRAD_RTOL)
+    emit("train_step_cpu_agreement", **rec)
+    if (max(loss_rel.values()) > CMP_LOSS_RTOL
+            or max(grad_rel.values()) > CMP_GRAD_RTOL):
+        raise RuntimeError(f"GPU and CPU train steps disagree: {rec}")
+
+
+def phase_trainer(device) -> None:
+    """A fresh 4-mesh × 5-sample dataset (12/4/4 split), one epoch of the
+    CLI at batch 4 (three train steps, one validation step with the power
+    method), then one sweep request from the new best checkpoint."""
+    import os
+    import shutil
+
+    from psignn_tpu_torch.cli.main import main as train_main
+    from psignn_tpu_torch.data.generate import generate_data
+    from psignn_tpu_torch.eval.run_eval import load_predictor
+    from psignn_tpu_torch.eval.sweep import growing_geometry_sweep
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    work = os.path.join(".chipwork", "smoke_trainer")
+    shutil.rmtree(work, ignore_errors=True)
+    data, results = os.path.join(work, "data"), os.path.join(work, "results")
+    t0 = time.perf_counter()
+    generate_data(data, n_mesh=4, n_samples=5, radius=1.0, hsize=0.08,
+                  verbose=False)
+    gen_s = time.perf_counter() - t0
+    mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    train_main(["--path_dataset", data, "--path_results", results,
+                "--batch_size", "4", "--max_epochs", "1",
+                "--device", str(device)])
+    train_s = time.perf_counter() - t0
+    launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
+    logs = os.path.join(results, "logs")
+    lines = {}
+    for name in ("train_metrics.csv", "forward_iteration.csv",
+                 "backward_iteration.csv", "spectral_radius.csv",
+                 "model_config.csv"):
+        with open(os.path.join(logs, name)) as f:
+            lines[name] = len(f.read().strip().splitlines())
+    ckpts = {name: os.path.exists(os.path.join(results, "ckpt",
+                                               name + ".ckpt"))
+             for name in ("running_model", "best_model", "final_model")}
+    predict, family, _, _ = load_predictor(
+        os.path.join(results, "ckpt", "best_model.ckpt"), device)
+    req = growing_geometry_sweep({family: predict}, radii=(1.0,), n_meshes=1,
+                                 hsize=0.08, seed=0, device=device,
+                                 warmup=False)[family][1.0]
+    rec = dict(generate_s=gen_s, train_s=train_s, fwd_launches=launches[0],
+               bwd_launches=launches[1], log_lines=lines, checkpoints=ckpts,
+               request=dict(n_nodes=req["n_nodes"], nstep=req["nstep"],
+                            res=req["res"], mse=req["mse"]))
+    emit("trainer", **rec)
+    # header + 3 steps in each iteration log, one spectral radius
+    if (not all(ckpts.values()) or 0 in launches
+            or lines["forward_iteration.csv"] != 4
+            or lines["backward_iteration.csv"] != 4
+            or lines["spectral_radius.csv"] != 2
+            or not all(np.isfinite(req[k]) for k in ("res", "mse"))):
+        raise RuntimeError(f"trainer phase failed: {rec}")
+
+
 def device_breakdown(run, top: int = 8) -> dict:
     """One more run of ``run`` under ``torch.profiler``: the device's kernel
     time in all and by kernel name, and the busy share of the unprofiled
@@ -363,10 +714,16 @@ def main() -> None:
     device = torch.device("cuda")
     phase_build()
     graph, sample = headline_graph(device)
-    entry = phase_kernel(graph, sample, device)
-    entry["launches"] = phase_slice(device)
+    t0 = time.perf_counter()
+    tgraph = train_graph(TRAIN_MESHES, 0, device)
+    tgraph_s = time.perf_counter() - t0
+    fwd = phase_kernel(graph, sample, tgraph, device)
+    bwd = phase_kernel_bwd(graph, sample, tgraph, device)
+    fwd["launches"] = phase_slice(device)
     phase_headline(graph, sample, device, smi)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    bwd["launches"] = phase_train_step(tgraph, tgraph_s, device, smi)
+    phase_trainer(device)
+    print(json.dumps({"kernels": [fwd, bwd]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,19 +2,22 @@
 
 Runs Ψ-GNN Dirichlet inference (fresh mesh → FEM system → encoder →
 Broyden fixed point of the update function → decoder → residual metrics)
-on an NVIDIA GPU, with the fused message passing as a hand-written CUDA
-kernel (``kernels/csrc/fused_mp_fwd.cu``).  Module names mirror the JAX
-package so each counterpart is easy to find:
+and training (implicit-gradient DEQ step, dual Adam, trainer and CLI) on
+an NVIDIA GPU, with the fused message passing and its backward as
+hand-written CUDA kernels (``kernels/csrc/fused_mp_{fwd,bwd}.cu``).
+Module names mirror the JAX package so each counterpart is easy to find:
 
   graphs   — unpadded concatenated mesh graphs + CSR edge packings
   nn       — Xavier-initialised MLP blocks
   ops      — message passing, SpMV residual, masked means
   solvers  — Broyden (others not yet ported)
-  deq      — the forward fixed-point solve
-  models   — Ψ-GNN (Dirichlet)
-  weights  — JAX parameter trees and checkpoints → port modules
-  data     — blob meshes, P1 FEM assembly, sample conversion
-  kernels  — the CUDA fused message-passing kernel and its plain version
+  deq      — forward solve, implicit backward, Jacobian regularisers
+  models   — Ψ-GNN (Dirichlet), inference and the training forward
+  weights  — JAX parameter trees and checkpoints ↔ port modules
+  data     — blob meshes, P1 FEM assembly, samples, dataset factory/loader
+  kernels  — the CUDA fused message-passing kernels and plain versions
+  train    — optimizers, the train step, checkpoints, the trainer
+  cli      — the training command line
   eval     — per-graph metrics and the growing-geometry sweep
 
 The package imports torch, numpy and scipy only — never JAX or the JAX

@@ -1,0 +1,165 @@
+"""Training CLI of the port: Ψ-GNN, Dirichlet, one device.
+
+Port of ``psignn_tpu/cli/main.py`` for the paths the port has::
+
+    python -m psignn_tpu_torch.cli.main --family psignn --variant dirichlet \\
+        --path_dataset data/ --solver broyden --fw_tol 1e-5 --fw_thres 500 \\
+        --lr_deq 0.01 --lr_ae 0.05 --jac_weight 1.0 --batch_size 50
+
+The flags keep the JAX CLI's names and defaults.  A flag for a path that
+is not yet ported (``--family dss|dsgps``, ``--variant mixed``,
+``--num_devices`` other than 1, ``--stacked_batch``, ``--lowrank_*``,
+``--broyden_ls``, a solver other than Broyden, ``--precision bfloat16``)
+is refused; the TPU-only ``--rcm``, ``--pallas`` and ``--cache_batches``
+and the DSS/DS-GPS knobs are not flags here.  ``--device`` picks the torch
+device (default: cuda).
+
+A run without ``--resume`` starts afresh: it deletes the ``ckpt/`` and
+``logs/`` an earlier run left in ``--path_results`` (default
+``results/psignn_torch_run/``), and refuses a directory that holds anything
+else, so that it never deletes files it did not write.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="psignn_tpu_torch trainer")
+    p.add_argument("--family", type=str, default="psignn",
+                   choices=["psignn", "dsgps", "dss"])
+    p.add_argument("--variant", type=str, default="dirichlet",
+                   choices=["dirichlet", "mixed"])
+    # paths
+    p.add_argument("--path_dataset", type=str, default="dataset/")
+    p.add_argument("--path_results", type=str,
+                   default="results/psignn_torch_run/")
+    p.add_argument("--resume", type=str, default="",
+                   help="checkpoint path to resume from (one the port wrote)")
+    # training
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--max_epochs", type=int, default=500)
+    p.add_argument("--precision", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--batch_size", type=int, default=50)
+    p.add_argument("--min_loss_save", type=float, default=1e10)
+    p.add_argument("--gradient_clip", type=float, default=0.1)
+    p.add_argument("--stats", type=str, default="reference",
+                   choices=["reference", "auto"])
+    # optimizers
+    p.add_argument("--lr_deq", type=float, default=0.01)
+    p.add_argument("--sched_step_deq", type=float, default=0.5)
+    p.add_argument("--lr_ae", type=float, default=0.05)
+    p.add_argument("--sched_step_ae", type=float, default=0.5)
+    # solver / DEQ
+    p.add_argument("--solver", type=str, default="broyden",
+                   choices=["broyden", "forward_iteration", "anderson",
+                            "newton", "newton_krylov"])
+    p.add_argument("--jac_weight", type=float, default=1.0)
+    p.add_argument("--latent_dim", type=int, default=10)
+    p.add_argument("--n_layers", type=int, default=1)
+    p.add_argument("--fw_tol", type=float, default=1e-5)
+    p.add_argument("--fw_thres", type=int, default=500)
+    p.add_argument("--bw_tol", type=float, default=1e-8)
+    p.add_argument("--bw_thres", type=int, default=500)
+    # devices and options of paths not yet ported (refused unless default)
+    p.add_argument("--num_devices", type=int, default=1)
+    p.add_argument("--lowrank_bf16", action="store_true")
+    p.add_argument("--broyden_ls", action="store_true")
+    p.add_argument("--lowrank_max_rank", type=int, default=0)
+    p.add_argument("--stacked_batch", action="store_true")
+    p.add_argument("--spike_guard", action="store_true",
+                   help="on a sustained val-residual spike (> spike_factor x "
+                        "best for spike_patience epochs) reload the best "
+                        "checkpoint and halve the effective lr")
+    p.add_argument("--spike_factor", type=float, default=3.0)
+    p.add_argument("--spike_patience", type=int, default=2)
+    p.add_argument("--val_sradius", type=int, default=1,
+                   help="power-method spectral radius during validation "
+                        "(150 VJPs per val batch, as the reference)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda)")
+    return p
+
+
+def refuse_unported(p: argparse.ArgumentParser, args) -> None:
+    """``p.error`` on any flag value whose path the port does not have."""
+    unported = [
+        (args.family != "psignn", f"--family {args.family}"),
+        (args.variant != "dirichlet", f"--variant {args.variant}"),
+        (args.solver != "broyden", f"--solver {args.solver}"),
+        (args.num_devices != 1, f"--num_devices {args.num_devices}"),
+        (args.precision != "float32", f"--precision {args.precision}"),
+        (args.stacked_batch, "--stacked_batch"),
+        (args.lowrank_bf16, "--lowrank_bf16"),
+        (args.lowrank_max_rank != 0, "--lowrank_max_rank"),
+        (args.broyden_ls, "--broyden_ls"),
+    ]
+    bad = [name for cond, name in unported if cond]
+    if bad:
+        p.error(f"not yet ported: {', '.join(bad)}")
+
+
+RUN_OUTPUTS = ("ckpt", "logs")
+
+
+def clear_results(p: argparse.ArgumentParser, path: str) -> None:
+    """Delete an earlier run's outputs in ``path``; ``p.error`` if ``path``
+    holds anything the trainer does not write."""
+    if not os.path.exists(path):
+        return
+    foreign = sorted(set(os.listdir(path)) - set(RUN_OUTPUTS))
+    if foreign:
+        p.error(f"--path_results {path} holds {', '.join(foreign)}, which "
+                f"a training run does not write; give a new or empty "
+                f"directory, or --resume")
+    for sub in RUN_OUTPUTS:
+        shutil.rmtree(os.path.join(path, sub), ignore_errors=True)
+
+
+def main(argv=None):
+    p = get_parser()
+    args = p.parse_args(argv)
+    refuse_unported(p, args)
+
+    from ..data.reader import GraphLoader, load_dataset, split_dataset
+    from ..models.psignn import PsignnConfig
+    from ..train import Trainer, TrainConfig
+
+    if not args.resume:
+        clear_results(p, args.path_results)
+    os.makedirs(args.path_results, exist_ok=True)
+
+    samples = load_dataset(args.path_dataset, stats=args.stats)
+    train, val, _ = split_dataset(samples)
+    loader_train = GraphLoader(train, batch_size=args.batch_size,
+                               shuffle=True, seed=args.seed,
+                               device=args.device)
+    loader_val = GraphLoader(val, batch_size=args.batch_size,
+                             device=args.device)
+    model_cfg = PsignnConfig(latent_dim=args.latent_dim,
+                             n_layers=args.n_layers, solver=args.solver,
+                             fw_tol=args.fw_tol, fw_thres=args.fw_thres,
+                             bw_tol=args.bw_tol, bw_thres=args.bw_thres)
+    cfg = TrainConfig(
+        model_cfg=model_cfg, max_epochs=args.max_epochs,
+        lr_deq=args.lr_deq, lr_ae=args.lr_ae,
+        sched_step_deq=args.sched_step_deq, sched_step_ae=args.sched_step_ae,
+        gradient_clip=args.gradient_clip, jac_weight=args.jac_weight,
+        min_loss_save=args.min_loss_save, path_results=args.path_results,
+        seed=args.seed, val_sradius=bool(args.val_sradius),
+        spike_guard=args.spike_guard, spike_factor=args.spike_factor,
+        spike_patience=args.spike_patience, device=args.device)
+
+    trainer = Trainer(cfg, loader_train, loader_val)
+    if args.resume:
+        trainer.load_model(args.resume)
+    trainer.train_model()
+    print("Training finished")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,94 @@
+"""Dataset factory: n_mesh meshes × n_samples RHS samples → .npy archives.
+
+Port of ``psignn_tpu/data/generate.py`` (Dirichlet variant), in the
+reference's format (``dirichlet/dataset/generate_data.py:25-98``): seven
+pickled object arrays (A_sparse_matrix, b_matrix, sol, prb_data, tags,
+coordinates, distance) and a ``dataset_info.csv``.  The same seed draws
+the same numbers in the same order as the JAX package's factory, so both
+write the same dataset.  The DSS encoding (``add_dss_variable``) and the
+mixed variant are not ported yet.
+
+    python -m psignn_tpu_torch.data.generate --path_data data/ \\
+        --n_mesh 200 --n_samples 50
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict
+
+import numpy as np
+
+from .fem import solve_poisson
+from .meshgen import blob_mesh
+
+KEYS = ("A_sparse_matrix", "b_matrix", "sol", "prb_data", "tags",
+        "coordinates", "distance")
+
+
+def generate_data(path_data: str, n_mesh: int = 200, n_samples: int = 50,
+                  radius: float = 1.0, hsize: float = 0.08,
+                  nb_bound_points: int = 10, seed: int = 1234,
+                  variant: str = "dirichlet",
+                  verbose: bool = True) -> Dict[str, list]:
+    if variant != "dirichlet":
+        raise NotImplementedError(f"variant '{variant}' is not yet ported")
+    rng = np.random.default_rng(seed)
+    lists = {k: [] for k in KEYS}
+    fem_key = {"A_sparse_matrix": "A", "b_matrix": "b"}
+
+    for n in range(n_mesh):
+        mesh = blob_mesh(radius=radius, hsize=hsize,
+                         nb_bound_points=nb_bound_points, rng=rng)
+        for _ in range(n_samples):
+            s = solve_poisson(mesh, radius, rng)
+            for k in KEYS:
+                lists[k].append(s[fem_key.get(k, k)])
+        if verbose and (n + 1) % 10 == 0:
+            print(f"mesh {n + 1}/{n_mesh} ({mesh.n_points} nodes)")
+
+    os.makedirs(path_data, exist_ok=True)
+    for k, v in lists.items():
+        arr = np.empty(len(v), dtype=object)
+        for i, item in enumerate(v):
+            arr[i] = item
+        np.save(os.path.join(path_data, f"{k}.npy"), arr, allow_pickle=True)
+
+    _write_info(path_data, lists, n_mesh, n_samples)
+    return lists
+
+
+def _write_info(path_data, lists, n_mesh, n_samples):
+    seq_nodes = [len(c) for c in lists["coordinates"]]
+    prb = np.vstack(lists["prb_data"])
+    dist = np.vstack(lists["distance"])
+    with open(os.path.join(path_data, "dataset_info.csv"), "w") as f:
+        f.write("Number of different meshes : %d\n" % n_mesh)
+        f.write("Number of samples per meshes : %d\n" % n_samples)
+        f.write("Total number of instances : %d\n" % (n_mesh * n_samples))
+        f.write("Mean of prb_data : %s\n" % list(np.around(prb.mean(0), 4)))
+        f.write("Std of prb_data : %s\n" % list(np.around(prb.std(0), 4)))
+        f.write("Mean of distance : %s\n" % list(np.around(dist.mean(0), 4)))
+        f.write("Std of distance : %s\n" % list(np.around(dist.std(0), 4)))
+        f.write("Mean number of nodes : %d\n" % int(np.mean(seq_nodes)))
+        f.write("Std number of nodes : %d\n" % int(np.std(seq_nodes)))
+        f.write("Min number of nodes : %d\n" % int(np.min(seq_nodes)))
+        f.write("Max number of nodes : %d\n" % int(np.max(seq_nodes)))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="psignn_tpu_torch dataset factory")
+    p.add_argument("--path_data", type=str, default="data/")
+    p.add_argument("--n_mesh", type=int, default=200)
+    p.add_argument("--n_samples", type=int, default=50)
+    p.add_argument("--radius", type=float, default=1.0)
+    p.add_argument("--hsize", type=float, default=0.08)
+    p.add_argument("--seed", type=int, default=1234)
+    args = p.parse_args(argv)
+    generate_data(args.path_data, args.n_mesh, args.n_samples, args.radius,
+                  args.hsize, seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

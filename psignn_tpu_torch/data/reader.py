@@ -1,16 +1,26 @@
-"""FEM sample → Ψ-GNN graph sample, with the reference normalisation.
+"""Datasets and FEM samples → Ψ-GNN graph samples and batches.
 
-Port of ``REF_STATS`` and ``psignn_sample_from_fem`` from
-``psignn_tpu/data/reader.py``.  Loading ``.npy`` datasets, ``GraphLoader``
-and the DSS sample form are not ported yet.
+Port of ``psignn_tpu/data/reader.py`` for the Ψ-GNN family, Dirichlet
+variant: ``REF_STATS``, ``psignn_sample_from_fem``, ``load_dataset`` of a
+reference-format ``.npy`` directory, the sequential 60/20/20
+``split_dataset`` and a ``GraphLoader`` of concatenated ``Graph`` batches.
+The port needs no padding caps (PyTorch runs eagerly), and the loader keeps
+the JAX loader's shuffle, ``np.random.RandomState(seed + epoch)``, so both
+packages see the same batches.  The DSS sample form and the mixed variant
+are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+import os
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sp
+
+from .. import resolve_device
+from ..graphs import Graph, batch_graphs
 
 # Hard-coded reference statistics (psignn reader.py:73-77, dss
 # reader.py:63-67, mixed reader.py:74-81 of the reference code base).
@@ -36,29 +46,129 @@ REF_STATS[("mixed", "dsgps")] = REF_STATS[("mixed", "psignn")]
 GraphSample = Dict[str, np.ndarray]
 
 
-def psignn_sample_from_fem(s: Dict[str, np.ndarray],
-                           variant: str = "dirichlet",
-                           dtype=np.float32) -> GraphSample:
-    """One ``data.fem.solve_poisson`` output → a Ψ-GNN graph sample: COO
-    edges over the nonzeros of A (``A[senders, receivers] = a_ij``),
+def _psignn_sample(A, b, sol, prb_data, tags, coordinates, distance,
+                   stats: Dict[str, np.ndarray], dtype) -> GraphSample:
+    """COO edges over the nonzeros of A (``A[senders, receivers] = a_ij``),
     normalised problem data and edge distances, and the initial condition
-    x = 0 inside, x = b on Dirichlet nodes."""
-    st = REF_STATS[(variant, "psignn")]
-    prb_mean = np.array(st["prb_mean"])
-    prb_std = np.array(st["prb_std"])
-    dist_mean = np.array(st["dist_mean"])
-    dist_std = np.array(st["dist_std"])
-    c = sp.find(s["A"])
-    b = np.asarray(s["b"], dtype).reshape(-1, 1)
-    sol = np.asarray(s["sol"], dtype).reshape(-1, 1)
-    tags = np.asarray(s["tags"], dtype).reshape(len(sol), -1)
+    x = 0 inside, x = b on Dirichlet nodes (reader.py:107-116)."""
+    c = sp.find(A)
+    b = np.asarray(b, dtype).reshape(-1, 1)
+    sol = np.asarray(sol, dtype).reshape(-1, 1)
+    tags = np.asarray(tags, dtype).reshape(len(sol), -1)
     x = np.zeros_like(sol)
     bnd = tags[:, 0] == 1 if tags.shape[1] == 1 else tags[:, 1] == 1
     x[bnd] = b[bnd]
     return dict(
         x=x, b=b, sol=sol,
-        prb_data=((s["prb_data"] - prb_mean) / prb_std).astype(dtype),
-        tags=tags, pos=np.asarray(s["coordinates"], dtype),
+        prb_data=((np.asarray(prb_data) - stats["prb_mean"])
+                  / stats["prb_std"]).astype(dtype),
+        tags=tags, pos=np.asarray(coordinates, dtype),
         senders=c[0].astype(np.int32), receivers=c[1].astype(np.int32),
         a_ij=c[2].reshape(-1, 1).astype(dtype),
-        edge_attr=((s["distance"] - dist_mean) / dist_std).astype(dtype))
+        edge_attr=((np.asarray(distance) - stats["dist_mean"])
+                   / stats["dist_std"]).astype(dtype))
+
+
+def _reference_stats(variant: str = "dirichlet") -> Dict[str, np.ndarray]:
+    return {k: np.array(v) for k, v in REF_STATS[(variant, "psignn")].items()}
+
+
+def psignn_sample_from_fem(s: Dict[str, np.ndarray],
+                           variant: str = "dirichlet",
+                           dtype=np.float32) -> GraphSample:
+    """One ``data.fem.solve_poisson`` output → a Ψ-GNN graph sample,
+    normalised with the reference statistics."""
+    return _psignn_sample(s["A"], s["b"], s["sol"], s["prb_data"], s["tags"],
+                          s["coordinates"], s["distance"],
+                          _reference_stats(variant), dtype)
+
+
+def _load(path_data: str, name: str) -> np.ndarray:
+    return np.load(os.path.join(path_data, name + ".npy"), allow_pickle=True)
+
+
+def load_dataset(path_data: str, family: str = "psignn",
+                 variant: str = "dirichlet", stats: str = "reference",
+                 dtype=np.float32) -> List[GraphSample]:
+    """Every sample of a reference-format data directory as a graph sample.
+
+    ``stats='reference'`` normalises with ``REF_STATS``; ``'auto'`` with
+    the mean and std of the loaded data (edge offsets stay centred)."""
+    if family != "psignn" or variant != "dirichlet":
+        raise NotImplementedError(
+            f"loading family '{family}', variant '{variant}' is not yet "
+            f"ported")
+    if stats not in ("reference", "auto"):
+        raise ValueError(f"stats must be 'reference' or 'auto', not {stats!r}")
+    arrays = {k: _load(path_data, k) for k in (
+        "A_sparse_matrix", "b_matrix", "sol", "prb_data", "tags",
+        "coordinates", "distance")}
+    if stats == "reference":
+        st = _reference_stats(variant)
+    else:
+        prb = np.vstack(arrays["prb_data"])
+        dist = np.vstack(arrays["distance"])
+        st = dict(prb_mean=prb.mean(axis=0), prb_std=prb.std(axis=0),
+                  dist_mean=dist.mean(axis=0), dist_std=dist.std(axis=0))
+        st["dist_mean"][0] = st["dist_mean"][1] = 0.0
+    return [_psignn_sample(*(arrays[k][i] for k in arrays), stats=st,
+                           dtype=dtype)
+            for i in range(len(arrays["A_sparse_matrix"]))]
+
+
+def split_dataset(samples: Sequence, family: str = "psignn",
+                  variant: str = "dirichlet"):
+    """(train, val, test): the reference's sequential 60/20/20 split,
+    ordered [0:.6 | .6:.8 | .8:1] (reader.py:120-121)."""
+    if family != "psignn" or variant != "dirichlet":
+        raise NotImplementedError(
+            f"splitting family '{family}', variant '{variant}' is not yet "
+            f"ported")
+    n = len(samples)
+    n_test = int(n * 0.2)
+    n_val = int((n - n_test) * 0.25)
+    n_train = n - n_test - n_val
+    samples = list(samples)
+    return (samples[:n_train], samples[n_train:n_train + n_val],
+            samples[n_train + n_val:])
+
+
+@dataclasses.dataclass
+class GraphLoader:
+    """Minibatches of concatenated ``Graph``s on ``device`` (default:
+    ``default_device()``).  With ``shuffle``, epoch k deals the samples in
+    the order of ``np.random.RandomState(seed + k)``."""
+
+    samples: List[GraphSample]
+    batch_size: int = 50
+    shuffle: bool = False
+    seed: int = 0
+    drop_last: bool = False
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self._epoch = 0
+
+    def __len__(self):
+        n = len(self.samples)
+        return (n // self.batch_size if self.drop_last
+                else -(-n // self.batch_size))
+
+    def batch_order(self, epoch: int) -> List[np.ndarray]:
+        """The sample indices of each batch of epoch ``epoch``."""
+        order = np.arange(len(self.samples))
+        if self.shuffle:
+            np.random.RandomState(self.seed + epoch).shuffle(order)
+        out = [order[i:i + self.batch_size]
+               for i in range(0, len(order), self.batch_size)]
+        if self.drop_last and out and len(out[-1]) < self.batch_size:
+            out.pop()
+        return out
+
+    def __iter__(self) -> Iterator[Graph]:
+        epoch = self._epoch
+        self._epoch += 1
+        for sel in self.batch_order(epoch):
+            yield batch_graphs([self.samples[j] for j in sel],
+                               device=self.device)

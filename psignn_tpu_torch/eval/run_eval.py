@@ -2,7 +2,7 @@
 checkpoint on the GPU.
 
 Port of ``psignn_tpu/eval/run_eval.py`` (``load_predictor`` and
-``--sweep``).  The test-split table waits for the dataset loader.
+``--sweep``).  The test-split table is not ported yet.
 
     python -m psignn_tpu_torch.eval.run_eval \\
         --ckpt results/psignn_dirichlet/ckpt/best_model.ckpt --sweep
@@ -17,8 +17,9 @@ from .. import resolve_device
 
 
 def load_predictor(ckpt_path: str, device=None, overrides=None):
-    """(predict_fn, family, cfg, model) from a ``psignn_tpu`` checkpoint;
-    ``predict_fn(graph)`` returns ``psignn_inference``'s tuple."""
+    """(predict_fn, family, cfg, model) from a Ψ-GNN checkpoint, the JAX
+    package's or one the port trained; ``predict_fn(graph)`` returns
+    ``psignn_inference``'s tuple."""
     from ..models import psignn_inference
     from ..weights import load_psignn_checkpoint
 
@@ -45,8 +46,8 @@ def main(argv=None):
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
     if not args.sweep:
-        p.error("only --sweep is ported; the test-split table needs the "
-                "dataset loader")
+        p.error("only --sweep is ported; the test-split table is not yet "
+                "ported")
 
     from .sweep import growing_geometry_sweep
 

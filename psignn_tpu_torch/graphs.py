@@ -44,9 +44,9 @@ class Graph:
     # --- per graph ---
     n_nodes: torch.Tensor         # (G,) int64
     n_edges: torch.Tensor         # (G,) int64
-    # --- CSR packings for the fused message-passing kernel ---
+    # --- CSR packings for the fused message-passing kernels ---
     mp_to: MPCsr                  # aggregation at receivers
-    mp_from: MPCsr                # aggregation at senders
+    mp_from: MPCsr                # aggregation at senders (mp_to.reverse())
     num_graphs: int = 1
 
     @property
@@ -89,6 +89,7 @@ def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    mp_to = pack_csr(senders, receivers, edge_attr, total, "to", device=device)
     return Graph(
         x=t(cat("x", 1)), b=t(cat("b", 1)), sol=t(cat("sol", 1)),
         prb_data=t(cat("prb_data", 2)), tags=t(tags), pos=t(cat("pos", 2)),
@@ -98,8 +99,4 @@ def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
         senders=t(senders), receivers=t(receivers),
         a_ij=t(cat("a_ij", 1)), edge_attr=t(edge_attr),
         n_nodes=t(n_nodes), n_edges=t(n_edges),
-        mp_to=pack_csr(senders, receivers, edge_attr, total, "to",
-                       device=device),
-        mp_from=pack_csr(senders, receivers, edge_attr, total, "from",
-                         device=device),
-        num_graphs=len(samples))
+        mp_to=mp_to, mp_from=mp_to.reverse(), num_graphs=len(samples))

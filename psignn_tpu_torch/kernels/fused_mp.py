@@ -1,5 +1,5 @@
-"""Fused message passing: the CSR edge packing, the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Fused message passing: the CSR edge packing, the CUDA kernels' wrappers,
+their plain PyTorch versions and the autograd wiring.
 
 The contract is ``psignn_tpu.kernels.fused_mp.mp_from_blocks`` (whose
 counterpart here is ``mp_from_csr``): for each
@@ -7,12 +7,17 @@ aggregation node, the 2-layer edge MLP of ``[x_i, x_j, edge_attr]`` summed
 over its edges (self-loops and masked edges excluded).  On the TPU the
 edges were packed into 128-node blocks with RCM windows for one-hot MXU
 matmuls; here they are packed as a CSR by aggregation node
-(``pack_csr``), which the CUDA kernel walks row by row
-(``csrc/fused_mp_fwd.cu``).
+(``pack_csr``), which the CUDA kernels walk row by row
+(``csrc/fused_mp_fwd.cu``, ``csrc/fused_mp_bwd.cu``).
 
 ``fused_message_passing`` picks by device: a CPU tensor goes through the
-plain version ``mp_from_csr``; a CUDA tensor launches the kernel or
-raises.  There is no fallback.
+plain version ``mp_from_csr`` (differentiated by autograd); a CUDA tensor
+goes through ``_FusedMP``, whose forward launches the forward kernel and
+whose backward launches the backward kernel, or raises.  There is no
+fallback.  As in the JAX package (``fused_mp.py:248-265``), the backward
+is itself differentiable: its first-order values come from the kernel and
+its own derivatives from differentiating the plain VJP ``mp_vjp_from_csr``,
+which the Hutchinson Jacobian loss needs.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -27,18 +33,26 @@ import torch
 from . import build
 
 KERNEL = "fused_mp_fwd"
+KERNEL_BWD = "fused_mp_bwd"
 
-# Kernel launches since the last reset; incremented only where the CUDA
-# kernel is launched.  ``chip_smoke.py`` zeroes it around the main path.
+# Kernel launches since the last reset; each is incremented only where its
+# CUDA kernel is launched.  ``chip_smoke.py`` zeroes them around the main
+# path.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class MPCsr:
-    """Edges of one direction, stably sorted by aggregation node."""
-    row_ptr: torch.Tensor    # (n_rows + 1,) int32 offsets into the edge arrays
-    oth: torch.Tensor        # (E,) int32 the other endpoint of each edge
-    edge_attr: torch.Tensor  # (E, edge_dim) float32
+    """Edges of one direction, stably sorted by aggregation node, and the
+    same edges sorted by their other endpoint (the opposite direction's
+    packing), which the backward kernel walks to sum per source node."""
+    row_ptr: torch.Tensor        # (n_rows + 1,) int32 offsets into the edges
+    oth: torch.Tensor            # (E,) int32 the other endpoint of each edge
+    edge_attr: torch.Tensor      # (E, edge_dim) float32
+    rev_row_ptr: torch.Tensor    # (n_rows + 1,) the same, by other endpoint
+    rev_oth: torch.Tensor        # (E,) int32 the aggregation node
+    rev_edge_attr: torch.Tensor  # (E, edge_dim) float32
 
     @property
     def n_rows(self) -> int:
@@ -48,6 +62,21 @@ class MPCsr:
     def n_edges(self) -> int:
         return self.oth.shape[0]
 
+    def reverse(self) -> "MPCsr":
+        """The opposite direction's packing (the same tensors, swapped)."""
+        return MPCsr(self.rev_row_ptr, self.rev_oth, self.rev_edge_attr,
+                     self.row_ptr, self.oth, self.edge_attr)
+
+
+def _rows(agg: np.ndarray, oth: np.ndarray, ea: np.ndarray, n_nodes: int,
+          device):
+    order = np.argsort(agg, kind="stable")
+    row_ptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(np.bincount(agg, minlength=n_nodes), out=row_ptr[1:])
+    return (torch.from_numpy(row_ptr.astype(np.int32)).to(device),
+            torch.from_numpy(oth[order].astype(np.int32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(ea[order])).to(device))
+
 
 def pack_csr(senders: np.ndarray, receivers: np.ndarray,
              edge_attr: np.ndarray, n_nodes: int, direction: str,
@@ -56,7 +85,8 @@ def pack_csr(senders: np.ndarray, receivers: np.ndarray,
 
     ``direction='to'`` aggregates at receivers (x_i = receiver), ``'from'``
     at senders.  Self-loops and masked edges are dropped; the stable sort
-    keeps each row's edges in COO order."""
+    keeps each row's edges in COO order.  ``reverse()`` of the result is
+    the packing of the other direction."""
     if direction not in ("to", "from"):
         raise ValueError(direction)
     senders = np.asarray(senders, np.int64)
@@ -67,16 +97,17 @@ def pack_csr(senders: np.ndarray, receivers: np.ndarray,
     agg = (receivers if direction == "to" else senders)[keep]
     oth = (senders if direction == "to" else receivers)[keep]
     ea = np.asarray(edge_attr, np.float32)[keep]
-    order = np.argsort(agg, kind="stable")
-    oth, ea = oth[order], ea[order]
-    row_ptr = np.zeros(n_nodes + 1, np.int64)
-    np.cumsum(np.bincount(agg, minlength=n_nodes), out=row_ptr[1:])
     if n_nodes >= 2 ** 31 or len(agg) >= 2 ** 31:
         raise ValueError("CSR indices exceed int32")
-    return MPCsr(
-        row_ptr=torch.from_numpy(row_ptr.astype(np.int32)).to(device),
-        oth=torch.from_numpy(oth.astype(np.int32)).to(device),
-        edge_attr=torch.from_numpy(np.ascontiguousarray(ea)).to(device))
+    return MPCsr(*_rows(agg, oth, ea, n_nodes, device),
+                 *_rows(oth, agg, ea, n_nodes, device))
+
+
+def _edge_rows(csr: MPCsr, device) -> torch.Tensor:
+    """(E,) int64 aggregation row of each edge, from ``row_ptr``."""
+    rows = torch.arange(csr.n_rows, device=device)
+    return torch.repeat_interleave(rows, csr.row_ptr.diff().long(),
+                                   output_size=csr.n_edges)
 
 
 def mp_from_csr(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -85,9 +116,7 @@ def mp_from_csr(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
 
     Weights are in ``nn.Linear`` layout: ``w1`` (Dh, 2D + edge_dim),
     ``w2`` (D_out, Dh).  Differentiable; runs on any device."""
-    rows = torch.arange(csr.n_rows, device=h.device)
-    agg = torch.repeat_interleave(rows, csr.row_ptr.diff().long(),
-                                  output_size=csr.n_edges)
+    agg = _edge_rows(csr, h.device)
     feats = torch.cat([h[agg], h[csr.oth.long()], csr.edge_attr], dim=-1)
     msg = torch.relu(feats @ w1.T + b1) @ w2.T + b2
     out = torch.zeros(h.shape[0], w2.shape[0], dtype=msg.dtype,
@@ -95,23 +124,106 @@ def mp_from_csr(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     return out.index_add_(0, agg, msg)
 
 
+def mp_vjp_from_csr(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                    b2: torch.Tensor, h: torch.Tensor, csr: MPCsr,
+                    g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of the backward: the VJP of ``mp_from_csr``
+    with output cotangent ``g`` (N, D_out), as (dw1, db1, dw2, db2, dh) in
+    the layouts of (w1, b1, w2, b2, h).  Written out edge by edge (pre,
+    ReLU mask, dpre) as the kernel computes it; differentiable."""
+    d = h.shape[1]
+    agg = _edge_rows(csr, h.device)
+    oth = csr.oth.long()
+    feats = torch.cat([h[agg], h[oth], csr.edge_attr], dim=-1)
+    pre = feats @ w1.T + b1
+    dmsg = g[agg]                                         # (E, D_out)
+    dw2 = dmsg.T @ torch.relu(pre)
+    db2 = dmsg.sum(0)
+    dpre = (dmsg @ w2) * (pre > 0).to(pre.dtype)          # (E, Dh)
+    dw1 = dpre.T @ feats
+    db1 = dpre.sum(0)
+    dfeats = dpre @ w1
+    dh = torch.zeros_like(h).index_add_(0, agg, dfeats[:, :d])
+    dh = dh.index_add_(0, oth, dfeats[:, d:2 * d])
+    return dw1, db1, dw2, db2, dh
+
+
 def fused_message_passing(w1: torch.Tensor, b1: torch.Tensor,
                           w2: torch.Tensor, b2: torch.Tensor, h: torch.Tensor,
                           csr: MPCsr) -> torch.Tensor:
     """(N, D_out) fused message passing of ``h`` (N, D) over ``csr``.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (the backward one when autograd differentiates the call)."""
     if h.device.type == "cpu":
         return mp_from_csr(w1, b1, w2, b2, h, csr)
     if h.device.type != "cuda":
         raise ValueError(f"fused_mp: unsupported device {h.device}")
-    return _fused_mp_cuda(w1, b1, w2, b2, h, csr)
+    return _FusedMP.apply(w1, b1, w2, b2, h, csr)
+
+
+def fused_mp_vjp(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                 b2: torch.Tensor, h: torch.Tensor, csr: MPCsr,
+                 g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(dw1, db1, dw2, db2, dh): the VJP of ``fused_message_passing`` for
+    the output cotangent ``g``.  CPU tensors take the plain version; CUDA
+    tensors launch the backward kernel."""
+    if h.device.type == "cpu":
+        return mp_vjp_from_csr(w1, b1, w2, b2, h, csr, g)
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_mp: unsupported device {h.device}")
+    return _fused_mp_bwd_cuda(w1, b1, w2, b2, h, csr, g)
+
+
+class _FusedMP(torch.autograd.Function):
+    """Forward kernel; its backward is ``_FusedMPVjp`` (the backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, w1, b1, w2, b2, h, csr):
+        ctx.csr = csr
+        ctx.save_for_backward(w1, b1, w2, b2, h)
+        return _fused_mp_cuda(w1, b1, w2, b2, h, csr)
+
+    @staticmethod
+    def backward(ctx, g):
+        w1, b1, w2, b2, h = ctx.saved_tensors
+        return (*_FusedMPVjp.apply(w1, b1, w2, b2, h, g.contiguous(),
+                                   ctx.csr), None)
+
+
+class _FusedMPVjp(torch.autograd.Function):
+    """Backward kernel; its own backward differentiates the plain VJP."""
+
+    @staticmethod
+    def forward(ctx, w1, b1, w2, b2, h, g, csr):
+        ctx.csr = csr
+        ctx.save_for_backward(w1, b1, w2, b2, h, g)
+        return fused_mp_vjp(w1, b1, w2, b2, h, csr, g)
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = mp_vjp_from_csr(*inputs[:5], ctx.csr, inputs[5])
+        grads = torch.autograd.grad(outs, inputs, cotangents,
+                                    allow_unused=True,
+                                    create_graph=torch.is_grad_enabled())
+        return (*grads, None)
 
 
 @functools.cache
 def _kernel_fn():
     fn = build.load(KERNEL).psignn_fused_mp_fwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel_fn():
+    fn = build.load(KERNEL_BWD).psignn_fused_mp_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,14 +242,11 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"fused_mp: {name} is not contiguous")
 
 
-def _fused_mp_cuda(w1, b1, w2, b2, h, csr: MPCsr) -> torch.Tensor:
-    global LAUNCHES
+def _check_call(w1, b1, w2, b2, h, csr: MPCsr):
+    """Widths (d, dh, d_out, edge_dim) of a kernel call, after checking
+    every operand's type, shape, device and contiguity."""
     if h.dim() != 2:
         raise ValueError(f"fused_mp: h must be (N, D), got {tuple(h.shape)}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (w1, b1, w2, b2, h)):
-        raise RuntimeError("fused_mp: the CUDA forward kernel has no backward "
-                           "yet; call it under torch.no_grad()")
     n, d = h.shape
     dh = w1.shape[0]
     d_out = w2.shape[0]
@@ -156,12 +265,17 @@ def _fused_mp_cuda(w1, b1, w2, b2, h, csr: MPCsr) -> torch.Tensor:
     _check("row_ptr", csr.row_ptr, i32, (n + 1,), dev)
     _check("oth", csr.oth, i32, (e,), dev)
     _check("edge_attr", csr.edge_attr, f32, (e, edge_dim), dev)
-
     if dev.index is not None and dev.index != torch.cuda.current_device():
         raise ValueError(f"fused_mp: tensors on {dev} but the current device "
                          f"is cuda:{torch.cuda.current_device()}")
+    return d, dh, d_out, edge_dim
 
-    out = torch.empty((n, d_out), dtype=f32, device=dev)
+
+def _fused_mp_cuda(w1, b1, w2, b2, h, csr: MPCsr) -> torch.Tensor:
+    global LAUNCHES
+    d, dh, d_out, edge_dim = _check_call(w1, b1, w2, b2, h, csr)
+    n = h.shape[0]
+    out = torch.empty((n, d_out), dtype=torch.float32, device=h.device)
     rc = _kernel_fn()(
         h.data_ptr(), csr.row_ptr.data_ptr(), csr.oth.data_ptr(),
         csr.edge_attr.data_ptr(), w1.data_ptr(), b1.data_ptr(),
@@ -171,3 +285,45 @@ def _fused_mp_cuda(w1, b1, w2, b2, h, csr: MPCsr) -> torch.Tensor:
         raise RuntimeError(f"fused_mp: kernel launch failed, cudaError {rc}")
     LAUNCHES += 1
     return out
+
+
+def _fused_mp_bwd_cuda(w1, b1, w2, b2, h, csr: MPCsr, g):
+    """The backward kernel, then the dense products the JAX package also
+    forms outside its kernel (``fused_mp.py:598-606``)."""
+    global BWD_LAUNCHES
+    d, dh, d_out, edge_dim = _check_call(w1, b1, w2, b2, h, csr)
+    n, e, dev = h.shape[0], csr.n_edges, h.device
+    f32, i32 = torch.float32, torch.int32
+    _check("g", g, f32, (n, d_out), dev)
+    _check("rev_row_ptr", csr.rev_row_ptr, i32, (n + 1,), dev)
+    _check("rev_oth", csr.rev_oth, i32, (e,), dev)
+    _check("rev_edge_attr", csr.rev_edge_attr, f32, (e, edge_dim), dev)
+
+    gw = torch.empty((n, dh), dtype=f32, device=dev)
+    dpre = torch.empty((e, dh), dtype=f32, device=dev)
+    ar = torch.empty((n, dh), dtype=f32, device=dev)
+    dha = torch.empty((n, dh), dtype=f32, device=dev)
+    dhb = torch.empty((n, dh), dtype=f32, device=dev)
+    n_w2 = d_out * dh
+    params = torch.empty(n_w2 + d_out + dh + dh * edge_dim, dtype=f32,
+                         device=dev)
+    rc = _bwd_kernel_fn()(
+        h.data_ptr(), g.data_ptr(), csr.row_ptr.data_ptr(),
+        csr.oth.data_ptr(), csr.edge_attr.data_ptr(),
+        csr.rev_row_ptr.data_ptr(), csr.rev_oth.data_ptr(),
+        csr.rev_edge_attr.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), gw.data_ptr(), dpre.data_ptr(), dha.data_ptr(),
+        dhb.data_ptr(), ar.data_ptr(), params.data_ptr(),
+        n, e, d, dh, d_out, edge_dim,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_mp: backward kernel launch failed, "
+                           f"cudaError {rc}")
+    BWD_LAUNCHES += 1
+    dw2 = params[:n_w2].view(d_out, dh)
+    db2 = params[n_w2:n_w2 + d_out]
+    db1 = params[n_w2 + d_out:n_w2 + d_out + dh]
+    dw1c = params[n_w2 + d_out + dh:].view(dh, edge_dim)
+    dh_out = dha @ w1[:, :d] + dhb @ w1[:, d:2 * d]
+    dw1 = torch.cat([dha.T @ h, dhb.T @ h, dw1c], dim=1)
+    return dw1, db1, dw2, db2, dh_out

@@ -9,9 +9,13 @@ Port of ``psignn_tpu/models/psignn.py`` (``PsignnConfig``, ``psignn_init``,
   gate on a gated MLP update ``h + α·update``, LayerNorm on the last layer,
   the hard Dirichlet reset ``where(dir_mask > 0, h_initial, h_next)`` and
   ``h * fnode_mask``;
-* inference: encode, Broyden fixed point of f_θ, decode.
+* inference: encode, Broyden fixed point of f_θ, decode;
+* ``psignn_forward``: the training forward with the JAX package's loss
+  dictionary (residual, Jacobian, encoder, autoencoder round-trip, and the
+  report-only MSEs and solver stats), the DEQ attached with its implicit
+  backward.
 
-The mixed variant, the losses and training come in later slices.
+The mixed variant comes in a later slice.
 """
 
 from __future__ import annotations
@@ -22,14 +26,11 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..deq import DEQConfig, fixed_point_forward
+from ..deq import (AdjointSolve, DEQConfig, SolveStats, deq_solve,
+                   fixed_point_forward)
 from ..graphs import Graph
 from ..nn import MLP, layer_norm, linear
-from ..ops import message_passing
-
-# Hyperparameters of the JAX package's config that only training reads (the
-# adjoint solve and the Jacobian loss); dropped when a checkpoint is loaded.
-TRAINING_ONLY = ("bw_tol", "bw_thres", "jac_vecs")
+from ..ops import message_passing, mse_masked, residual_loss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +41,9 @@ class PsignnConfig:
     solver: str = "broyden"
     fw_tol: float = 1e-5
     fw_thres: int = 300
+    bw_tol: float = 1e-8
+    bw_thres: int = 300
+    jac_vecs: int = 1                   # Hutchinson probes (model.py:207)
     edge_dim: int = 3
     # options of the JAX package that are not ported; accepted so that a
     # JAX checkpoint's hyperparameters load, refused unless at the default
@@ -58,10 +62,9 @@ class PsignnConfig:
     @classmethod
     def from_hyperparameters(cls, hp: Dict[str, Any],
                              **overrides) -> "PsignnConfig":
-        """The config of a JAX checkpoint's ``hyperparameters``, without
-        the training-only keys; ``overrides`` replace the rest."""
-        kept = {k: v for k, v in hp.items() if k not in TRAINING_ONLY}
-        return cls(**{**kept, **overrides})
+        """The config of a checkpoint's ``hyperparameters`` (the JAX
+        package's or the port's); ``overrides`` replace entries."""
+        return cls(**{**hp, **overrides})
 
     @property
     def prb_dim(self) -> int:
@@ -70,7 +73,8 @@ class PsignnConfig:
     @property
     def deq(self) -> DEQConfig:
         return DEQConfig(solver=self.solver, fw_tol=self.fw_tol,
-                         fw_thres=self.fw_thres)
+                         fw_thres=self.fw_thres, bw_tol=self.bw_tol,
+                         bw_thres=self.bw_thres)
 
 
 class PsignnLayer(nn.Module):
@@ -138,3 +142,54 @@ def psignn_inference(model: Psignn, graph: Graph, cfg: PsignnConfig
         out = fixed_point_forward(model.function, h_initial, graph, cfg.deq)
         u = model.decoder(out.result) * graph.fnode_mask
     return PsignnInference(u, out.nstep, out.lowest, out.prot_break)
+
+
+class PsignnOutput(NamedTuple):
+    u_final: torch.Tensor
+    losses: Dict[str, torch.Tensor]   # the nine 0-d entries of the JAX dict
+    fw: SolveStats                    # forward solve
+    adjoint: AdjointSolve             # backward solve, after backward()
+
+
+def psignn_forward(model: Psignn, graph: Graph, cfg: PsignnConfig,
+                   generator: torch.Generator, training: bool = True
+                   ) -> PsignnOutput:
+    """Full forward with the loss dictionary (model.py:58-97).
+
+    Training mode attaches the implicit backward; eval mode also estimates
+    the spectral radius.  Detaches exactly where the JAX package calls
+    ``stop_gradient`` (``models/psignn.py:168-175``)."""
+    h_initial = model.encoder(graph.x) * graph.fnode_mask
+    out = deq_solve(model.function, h_initial, graph, cfg.deq, generator,
+                    compute_sradius=not training, jac_vecs=cfg.jac_vecs)
+    h_final = out.new_h_star
+    u_final = model.decoder(h_final) * graph.fnode_mask
+    nodes = graph.fnode_mask[:, 0] > 0
+
+    res = residual_loss(u_final, graph)
+    u_det = u_final.detach()
+    h_det = h_final.detach()
+    # encoder loss on detached values (model.py:75-79)
+    enc_loss = mse_masked(model.encoder(u_det), h_det, nodes)
+    # decoder round-trip with a detached encoding (model.py:82)
+    auto_loss = mse_masked(model.decoder(model.encoder(u_det).detach()),
+                           u_det, nodes)
+    mse = mse_masked(u_final, graph.sol, nodes)
+    mse_dir = mse_masked(u_final, graph.x, graph.dirichlet_mask[:, 0] > 0)
+
+    def scalar(v):
+        return torch.tensor(float(v), dtype=u_final.dtype,
+                            device=u_final.device)
+
+    losses = {
+        "residual_loss": res,
+        "jacobian_loss": out.jac_loss,
+        "encoder_loss": enc_loss,
+        "autoencoder_loss": auto_loss,
+        "mse_loss": mse,
+        "mse_dirichlet": mse_dir,
+        "fw_lowest": scalar(out.fw.lowest),
+        "fw_nstep": scalar(out.fw.nstep),
+        "sradius": out.sradius,
+    }
+    return PsignnOutput(u_final, losses, out.fw, out.adjoint)

@@ -1,0 +1,325 @@
+"""Experiment runner: train and validation epochs, CSV logs, checkpoints.
+
+Port of ``psignn_tpu/train/trainer.py`` for the Ψ-GNN family on one device
+with one concatenated batch per step:
+
+* two Adams (update function, autoencoder) with their plateau schedulers
+  (training_class.py:52-58), loss = residual + jac_weight·jacobian +
+  encoder + autoencoder, the joint global-norm clip (``train/step.py``);
+* the LR-floor stop at 1e-7 (training_class.py:291-294);
+* ``train_metrics.csv`` lines at 25/50/75 % of each epoch and at its end,
+  ``forward_iteration.csv`` / ``backward_iteration.csv`` (lowest, nstep of
+  each step's two solves), ``spectral_radius.csv`` from the validation
+  power method, ``model_config.csv``;
+* running/best/final checkpoints keyed on the validation residual
+  (training_class.py:296-333), ``--spike_guard`` and resume.
+
+The loss and gradient plots are left out (the JAX trainer already runs
+without matplotlib).  ``data_parallel`` and ``stacked_batch`` are not yet
+ported and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import time
+from typing import Any, Dict, Optional
+
+import torch
+
+from .. import resolve_device
+from ..models.psignn import Psignn, PsignnConfig, psignn_forward
+from ..weights import params_from_jax, params_to_jax
+from .checkpoint import (load_checkpoint, optimizer_state_from_numpy,
+                         optimizer_state_to_numpy, save_checkpoint)
+from .optim import PlateauScheduler, make_optimizers
+from .step import psignn_loss, train_step
+
+LOSS_KEYS = ["loss", "residual_loss", "jacobian_loss", "encoder_loss",
+             "autoencoder_loss", "mse_loss"]
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    family: str = "psignn"
+    model_cfg: Any = None
+    max_epochs: int = 500
+    lr_deq: float = 0.01
+    lr_ae: float = 0.05
+    sched_step_deq: float = 0.5
+    sched_step_ae: float = 0.5
+    gradient_clip: float = 0.1
+    jac_weight: float = 1.0
+    min_loss_save: float = 1e10
+    path_results: str = "results/psignn_torch_run/"
+    seed: int = 1234
+    val_sradius: bool = True
+    lr_floor: float = 1e-7
+    data_parallel: bool = False
+    stacked_batch: bool = False
+    # on a sustained validation-residual spike (> spike_factor × the best
+    # for spike_patience epochs) reload the best checkpoint and halve the
+    # effective learning rates (the JAX trainer's opt-in guard)
+    spike_guard: bool = False
+    spike_factor: float = 3.0
+    spike_patience: int = 2
+    device: Optional[str] = None     # default: the first CUDA device
+
+
+class Trainer:
+
+    def __init__(self, config: TrainConfig, loader_train, loader_val,
+                 model: Optional[Psignn] = None):
+        if config.family != "psignn":
+            raise NotImplementedError(
+                f"family '{config.family}' is not yet ported")
+        if config.data_parallel or config.stacked_batch:
+            raise NotImplementedError(
+                "data_parallel and stacked_batch are not yet ported")
+        self.c = config
+        self.loader_train = loader_train
+        self.loader_val = loader_val
+        self.family = config.family
+        self.mc = config.model_cfg or PsignnConfig()
+        self.device = resolve_device(config.device)
+
+        self.path_ckpt = os.path.join(config.path_results, "ckpt")
+        self.path_logs = os.path.join(config.path_results, "logs")
+        os.makedirs(self.path_ckpt, exist_ok=True)
+        os.makedirs(self.path_logs, exist_ok=True)
+        self._init_log_files()
+
+        if model is None:
+            model = Psignn(self.mc,
+                           generator=torch.Generator().manual_seed(config.seed),
+                           device=self.device)
+        self.model = model
+        self.opts = make_optimizers(model, config.lr_deq, config.lr_ae)
+        self.sched_deq = PlateauScheduler(config.lr_deq, config.sched_step_deq)
+        self.sched_ae = PlateauScheduler(config.lr_ae, config.sched_step_ae)
+
+        self.hist_train = {k: [] for k in LOSS_KEYS}
+        self.hist_val = {k: [] for k in LOSS_KEYS}
+        self.min_loss_save = config.min_loss_save
+        self.lr_scale = 1.0          # halved by the spike guard
+        self._spike_count = 0
+        self.training_time = 0.0
+        # Hutchinson and power-method probes
+        self.generator = torch.Generator().manual_seed(config.seed + 1)
+        self._dump_model_config()
+
+    # ------------------------------------------------------------------ setup
+
+    def _log(self, name: str, text: str) -> None:
+        with open(os.path.join(self.path_logs, name), "a") as f:
+            f.write(text)
+
+    def _init_log_files(self):
+        for name, header in [("train_metrics.csv", "Train Metrics"),
+                             ("forward_iteration.csv", "Residual \t Iterations"),
+                             ("backward_iteration.csv", "Residual \t Iterations"),
+                             ("spectral_radius.csv", "Spectral Radius")]:
+            if not os.path.exists(os.path.join(self.path_logs, name)):
+                self._log(name, header)
+
+    def _dump_model_config(self):
+        n_params = sum(p.numel() for p in self.model.parameters())
+        with open(os.path.join(self.path_logs, "model_config.csv"), "w") as f:
+            f.write(f"Number of devices used : 1 ({self.device}) \n\n")
+            f.write("Includes {} train samples, {} val samples \n".format(
+                len(self.loader_train.samples), len(self.loader_val.samples)))
+            f.write(f"Batch size {self.loader_train.batch_size} \n\n")
+            f.write("Model configuration : \n{\n")
+            for fld in dataclasses.fields(self.mc):
+                f.write(f"'{fld.name}':'{getattr(self.mc, fld.name)}'\n")
+            f.write("}\n\nTraining configuration : \n{\n")
+            for fld in dataclasses.fields(self.c):
+                if fld.name == "model_cfg":
+                    continue
+                f.write(f"'{fld.name}':'{getattr(self.c, fld.name)}'\n")
+            f.write("}\n\n")
+            f.write(f"Number of parameters : {n_params} \n")
+
+    # -------------------------------------------------------------- epoch ops
+
+    def train_loop(self, epoch: int):
+        c = self.c
+        accum = {k: 0.0 for k in LOSS_KEYS}
+        n_batches = len(self.loader_train)
+        lrs = (self.sched_deq.lr * self.lr_scale,
+               self.sched_ae.lr * self.lr_scale)
+        marks = {math.ceil(f * n_batches) for f in (0.25, 0.5, 0.75)}
+        pending = []          # StepResults since the last log line
+
+        def flush():
+            for name, attr in (("forward_iteration.csv", "fw"),
+                               ("backward_iteration.csv", "bw")):
+                self._log(name, "".join(
+                    "\n{} \t {}".format(float(s.lowest), int(s.nstep))
+                    for s in (getattr(r, attr) for r in pending)
+                    if s is not None))
+            sums = {k: sum(r.loss if k == "loss" else r.losses[k]
+                           for r in pending) for k in LOSS_KEYS}
+            n = len(pending)
+            pending.clear()
+            return sums, n
+
+        for i, graph in enumerate(self.loader_train):
+            pending.append(train_step(self.model, self.opts, graph, self.mc,
+                                      lrs, c.gradient_clip, c.jac_weight,
+                                      self.generator))
+            if i in marks:
+                run, cumul = flush()
+                for k in LOSS_KEYS:
+                    accum[k] += run[k]
+                self._log("train_metrics.csv",
+                          "\nEpoch {}, {:d}% \t Loss : {:.4e} \t Res : {:.4e}"
+                          " \t Jac : {:.4e} \t Enc : {:.4e} \t AEnc : {:.4e}"
+                          " \t MSE : {:.4e}".format(
+                              epoch, int(i * 100 / n_batches),
+                              *(run[k] / max(cumul, 1) for k in LOSS_KEYS)))
+        run, _ = flush()
+        for k in LOSS_KEYS:
+            accum[k] += run[k]
+            self.hist_train[k].append(accum[k] / n_batches)
+        self._log("train_metrics.csv",
+                  "\nTraining Epoch {} : \t Train : {:.5e} \t Res : {:.5e}"
+                  " \t Jac : {:.5e} \t Enc : {:.5e} \t AE : {:.5e}"
+                  " \t MSE : {:.5e}".format(
+                      epoch, *(self.hist_train[k][-1] for k in LOSS_KEYS)))
+
+    def validation_loop(self, epoch: int):
+        n_batches = len(self.loader_val)
+        vecs, srads = [], []
+        for graph in self.loader_val:
+            with torch.no_grad():
+                out = psignn_forward(self.model, graph, self.mc,
+                                     self.generator,
+                                     training=not self.c.val_sradius)
+            loss = psignn_loss(out.losses, self.c.jac_weight)
+            vecs.append(torch.stack([loss.detach()] + [
+                out.losses[k].detach() for k in LOSS_KEYS[1:]]))
+            if self.c.val_sradius:
+                srads.append(out.losses["sradius"])
+        sums = torch.stack(vecs).sum(0).cpu().tolist()
+        if srads:
+            self._log("spectral_radius.csv", "".join(
+                "\n{}".format(s) for s in torch.stack(srads).cpu().tolist()))
+        for k, v in zip(LOSS_KEYS, sums):
+            self.hist_val[k].append(v / n_batches)
+        self._log("train_metrics.csv",
+                  "\nValidation Epoch {} : \t Train : {:.5e} \t Res : {:.5e}"
+                  " \t Jac : {:.5e} \t Enc : {:.5e} \t AE : {:.5e}"
+                  " \t MSE : {:.5e}".format(
+                      epoch, *(self.hist_val[k][-1] for k in LOSS_KEYS)))
+
+    # ------------------------------------------------------------- main train
+
+    def train_model(self) -> Psignn:
+        c = self.c
+        checkpoint = None
+        # resume continues the epoch numbering and stops at the absolute
+        # max_epochs budget
+        start_epoch = len(self.hist_val["loss"])
+        for epoch in range(start_epoch, c.max_epochs):
+            t0 = time.time()
+            self.train_loop(epoch)
+            self.validation_loop(epoch)
+            self.sched_deq.step(self.hist_val["loss"][-1])
+            self.sched_ae.step(self.hist_val["loss"][-1])
+            self.training_time += time.time() - t0
+
+            # effective learning rates: the spike guard's scale included
+            if (self.sched_deq.lr * self.lr_scale <= c.lr_floor
+                    and self.sched_ae.lr * self.lr_scale <= c.lr_floor):
+                self._log("train_metrics.csv", "\nTraining exit because both "
+                          "learning rates too low !")
+                break
+
+            improved = self.hist_val["residual_loss"][-1] <= self.min_loss_save
+            if improved:
+                self.min_loss_save = self.hist_val["residual_loss"][-1]
+            checkpoint = self._make_checkpoint(epoch)
+            save_checkpoint(checkpoint, self.path_ckpt, "running_model")
+            if improved:
+                save_checkpoint(checkpoint, self.path_ckpt, "best_model")
+            self._log("train_metrics.csv",
+                      "\nTraining Epoch {} finished, took current epoch "
+                      "{:.2f}s, cumulative time {:.2f}s".format(
+                          epoch, time.time() - t0, self.training_time)
+                      + "\nCurrent Learning rate DEQ : {}".format(
+                          self.sched_deq.lr)
+                      + "\nCurrent Learning rate AUTOENC : {}".format(
+                          self.sched_ae.lr)
+                      + ("\nMODEL SAVED" if improved else ""))
+
+            if c.spike_guard and not improved and self.min_loss_save < 1e9:
+                spiked = (self.hist_val["residual_loss"][-1]
+                          > c.spike_factor * self.min_loss_save)
+                self._spike_count = self._spike_count + 1 if spiked else 0
+                if self._spike_count >= c.spike_patience:
+                    best = os.path.join(self.path_ckpt, "best_model.ckpt")
+                    if os.path.exists(best):
+                        self._load_state(load_checkpoint(best))
+                    self.lr_scale *= 0.5
+                    self._spike_count = 0
+                    self._log("train_metrics.csv",
+                              "\nSPIKE GUARD: val residual > {:.1f}x best "
+                              "for {} epochs - reloaded best checkpoint, "
+                              "lr scale now {:g}".format(
+                                  c.spike_factor, c.spike_patience,
+                                  self.lr_scale))
+                    # a restart before the next epoch resumes from the
+                    # recovered state
+                    save_checkpoint(self._make_checkpoint(epoch),
+                                    self.path_ckpt, "running_model")
+
+        if checkpoint is None:
+            checkpoint = self._make_checkpoint(c.max_epochs - 1)
+        save_checkpoint(checkpoint, self.path_ckpt, "final_model")
+        return self.model
+
+    def _make_checkpoint(self, epoch: int) -> Dict[str, Any]:
+        return dict(
+            epoch=epoch,
+            family=self.family,
+            hyperparameters=dataclasses.asdict(self.mc),
+            params=params_to_jax(self.model.state_dict()),
+            hist_train=self.hist_train,
+            hist_val=self.hist_val,
+            min_loss_save=self.min_loss_save,
+            lr_scale=self.lr_scale,
+            training_time=self.training_time,
+            torch_optim=dict(
+                deq=optimizer_state_to_numpy(self.opts[0].state_dict()),
+                ae=optimizer_state_to_numpy(self.opts[1].state_dict()),
+                sched_deq=self.sched_deq.state_dict(),
+                sched_ae=self.sched_ae.state_dict()),
+        )
+
+    def _load_state(self, ckpt: Dict[str, Any]) -> None:
+        """Parameters and optimizer states of a checkpoint the port wrote."""
+        if "torch_optim" not in ckpt:
+            raise NotImplementedError(
+                "resuming from a JAX checkpoint's optax state is not yet "
+                "ported")
+        sd = {k: v.to(self.device) for k, v in
+              params_from_jax(ckpt["params"]).items()}
+        self.model.load_state_dict(sd)
+        for opt, key in zip(self.opts, ("deq", "ae")):
+            opt.load_state_dict(
+                optimizer_state_from_numpy(ckpt["torch_optim"][key]))
+
+    def load_model(self, path: str) -> None:
+        """Resume from a checkpoint (training_class.py:68-81)."""
+        ckpt = load_checkpoint(path)
+        self._load_state(ckpt)
+        self.hist_train = ckpt["hist_train"]
+        self.hist_val = ckpt["hist_val"]
+        self.min_loss_save = ckpt["min_loss_save"]
+        self.lr_scale = ckpt.get("lr_scale", 1.0)
+        self.training_time = ckpt["training_time"]
+        self.sched_deq.load_state_dict(ckpt["torch_optim"]["sched_deq"])
+        self.sched_ae.load_state_dict(ckpt["torch_optim"]["sched_ae"])

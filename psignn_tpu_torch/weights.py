@@ -1,10 +1,11 @@
 """JAX parameter trees and ``psignn_tpu`` checkpoints → port modules.
 
-``params_from_jax`` owns the layout change: a JAX linear layer is
-``{"w": (fan_in, fan_out), "b": (fan_out,)}`` while ``nn.Linear.weight`` is
-(out, in).  ``load_jax_checkpoint`` reads a ``psignn_tpu`` ``.ckpt`` pickle
-without jax or optax installed (the format written by
-``psignn_tpu/train/checkpoint.py``).
+``params_from_jax`` (and its inverse ``params_to_jax``) owns the layout
+change: a JAX linear layer is ``{"w": (fan_in, fan_out), "b": (fan_out,)}``
+while ``nn.Linear.weight`` is (out, in).  ``load_jax_checkpoint`` reads a
+``.ckpt`` pickle without jax or optax installed: the format written by
+``psignn_tpu/train/checkpoint.py``, which the port's trainer also writes
+(``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,38 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """A ``Psignn`` state dict as a JAX parameter tree of numpy arrays (the
+    ``psignn_init`` layout), the inverse of ``params_from_jax``."""
+    sd = {k: v.detach().cpu().numpy().astype(np.float32)
+          for k, v in state_dict.items()}
+
+    def lin(prefix):
+        return {"w": np.ascontiguousarray(sd[f"{prefix}.weight"].T),
+                "b": sd[f"{prefix}.bias"]}
+
+    def mlp(prefix):
+        n = 0
+        while f"{prefix}.layers.{n}.weight" in sd:
+            n += 1
+        return [lin(f"{prefix}.layers.{i}") for i in range(n)]
+
+    layers = []
+    while f"function.layers.{len(layers)}.phi_to.layers.0.weight" in sd:
+        k = len(layers)
+        layers.append({name: mlp(f"function.layers.{k}.{name}")
+                       for name in ("phi_to", "phi_from", "update")})
+    return {
+        "function": {
+            "layers": layers,
+            "alpha": lin("function.alpha"),
+            "laynorm": {"scale": sd["function.laynorm.weight"],
+                        "bias": sd["function.laynorm.bias"]},
+        },
+        "autoencoder": {"encoder": mlp("encoder"), "decoder": mlp("decoder")},
+    }
+
+
 def psignn_from_jax(tree: Dict[str, Any], cfg: PsignnConfig,
                     device=None) -> Psignn:
     """A ``Psignn`` on ``device`` holding the JAX tree's weights."""
@@ -97,8 +130,9 @@ def load_jax_checkpoint(path: str) -> Dict[str, Any]:
 
 def load_psignn_checkpoint(path: str, device=None,
                            overrides: Optional[Dict[str, Any]] = None):
-    """(model, cfg) from a ``psignn_tpu`` Ψ-GNN checkpoint; ``overrides``
-    replace hyperparameters (e.g. ``fw_thres``)."""
+    """(model, cfg) from a Ψ-GNN checkpoint, the JAX package's or one the
+    port's trainer wrote; ``overrides`` replace hyperparameters (e.g.
+    ``fw_thres``)."""
     ckpt = load_jax_checkpoint(path)
     if ckpt.get("family", "psignn") != "psignn":
         raise NotImplementedError(f"family '{ckpt['family']}' is not yet ported")

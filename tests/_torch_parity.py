@@ -35,3 +35,31 @@ def load_trained():
     from psignn_tpu_torch.weights import load_jax_checkpoint
     ck = load_jax_checkpoint(CKPT)
     return ck["params"], dict(ck["hyperparameters"])
+
+
+def kernel_route(monkeypatch):
+    """Send CPU tensors down the CUDA route of ``fused_message_passing``
+    (the ``_FusedMP`` / ``_FusedMPVjp`` autograd wiring and the launch
+    counters), with each kernel replaced by its plain version.  The kernels
+    themselves run only on the card (``chip_smoke.py``); this checks the
+    wiring around them."""
+    import torch
+    from psignn_tpu_torch import ops
+    from psignn_tpu_torch.kernels import fused_mp as fm
+
+    def fwd(w1, b1, w2, b2, h, csr):
+        fm.LAUNCHES += 1
+        with torch.no_grad():
+            return fm.mp_from_csr(w1, b1, w2, b2, h, csr)
+
+    def bwd(w1, b1, w2, b2, h, csr, g):
+        fm.BWD_LAUNCHES += 1
+        with torch.no_grad():
+            return fm.mp_vjp_from_csr(w1, b1, w2, b2, h, csr, g)
+
+    monkeypatch.setattr(fm, "_fused_mp_cuda", fwd)
+    monkeypatch.setattr(fm, "fused_mp_vjp", bwd)
+    monkeypatch.setattr(ops, "fused_message_passing", fm._FusedMP.apply)
+    monkeypatch.setattr(fm, "LAUNCHES", 0)
+    monkeypatch.setattr(fm, "BWD_LAUNCHES", 0)
+    return fm

@@ -59,6 +59,18 @@ def test_package_import_leaves_jax_out():
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
+def test_scan_covers_every_module():
+    """The import checks above read every module of the training slice
+    and both kernel sources exist beside the kernel module."""
+    scanned = {str(p.relative_to(PORT)) for p in _port_sources()
+               if PORT in p.parents}
+    assert {"deq.py", "cli/main.py", "data/generate.py", "data/reader.py",
+            "train/optim.py", "train/step.py", "train/checkpoint.py",
+            "train/trainer.py", "kernels/fused_mp.py"} <= scanned
+    for name in ("fused_mp_fwd", "fused_mp_bwd"):
+        assert (build.SRC_DIR / f"{name}.cu").is_file()
+
+
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
@@ -91,9 +103,15 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "csr = fused_mp.pack_csr([0, 1, 1], [1, 0, 1], [[1.], [2.], [3.]],\n"
         "                        2, 'to')\n"
         "(l1, l2) = mlp.layers\n"
+        "h = torch.ones(2, 3, requires_grad=True)\n"
         "out = fused_mp.fused_message_passing(l1.weight, l1.bias, l2.weight,\n"
-        "                                     l2.bias, torch.ones(2, 3), csr)\n"
-        "assert out.shape == (2, 3) and fused_mp.LAUNCHES == 0\n"
+        "                                     l2.bias, h, csr)\n"
+        "out.sum().backward()\n"
+        "vjp = fused_mp.fused_mp_vjp(l1.weight, l1.bias, l2.weight, l2.bias,\n"
+        "                            h, csr, torch.ones(2, 3))\n"
+        "assert out.shape == (2, 3) and h.grad.shape == (2, 3)\n"
+        "assert len(vjp) == 5\n"
+        "assert fused_mp.LAUNCHES == 0 and fused_mp.BWD_LAUNCHES == 0\n"
         "assert not build._LIBS\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,

@@ -22,7 +22,6 @@ from psignn_tpu_torch.eval import run_eval, sweep
 from psignn_tpu_torch.eval.metrics import errors_batch
 from psignn_tpu_torch.graphs import batch_graphs
 from psignn_tpu_torch.models import Psignn, PsignnConfig, psignn_inference
-from psignn_tpu_torch.models.psignn import TRAINING_ONLY
 from psignn_tpu_torch.ops import (mse_per_graph, residual_loss,
                                   residual_per_graph)
 from psignn_tpu_torch.weights import psignn_from_jax
@@ -182,16 +181,19 @@ def test_config_refuses_unported_options(trained):
         with pytest.raises(NotImplementedError):
             PsignnConfig.from_hyperparameters(hp, **over)
     cfg = PsignnConfig.from_hyperparameters(hp)
-    assert dataclasses.asdict(cfg) == {k: v for k, v in hp.items()
-                                       if k not in TRAINING_ONLY}
+    # every hyperparameter of the checkpoint round-trips, training knobs too
+    assert dataclasses.asdict(cfg) == hp
+    assert PsignnConfig.from_hyperparameters(dataclasses.asdict(cfg)) == cfg
     assert cfg.deq.fw_tol == 1e-5 and cfg.deq.fw_thres == 500
-    # the training-only knobs are not options of the inference config
-    for key in TRAINING_ONLY:
+    # the adjoint solve's knobs are carried into the DEQ config
+    for key in ("bw_tol", "bw_thres", "jac_vecs"):
         assert key in hp
-        with pytest.raises(TypeError):
-            PsignnConfig(**{key: hp[key]})
-        with pytest.raises(TypeError):
-            PsignnConfig.from_hyperparameters({}, **{key: hp[key]})
+    assert (cfg.deq.bw_tol, cfg.deq.bw_thres) == (hp["bw_tol"],
+                                                  hp["bw_thres"])
+    assert cfg.jac_vecs == hp["jac_vecs"]
+    own = PsignnConfig(bw_tol=1e-6, bw_thres=40, jac_vecs=2)
+    assert (own.deq.bw_tol, own.deq.bw_thres, own.jac_vecs) == (1e-6, 40, 2)
+    assert PsignnConfig.from_hyperparameters({}, bw_thres=7).deq.bw_thres == 7
 
 
 def test_seeded_init_is_reproducible():
