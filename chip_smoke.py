@@ -13,7 +13,10 @@ Phases, each printing one JSON line:
                 plain PyTorch version on the card, both directions, on the
                 radius-5 headline mesh at edge_dim 3 and 1 and on the
                 train step's 50-mesh batch: max error, bit-identical
-                relaunch, per-call times, the bound.
+                relaunch, per-call times (CUDA events, and the device
+                time of every kernel the call launched), the bound.  Then,
+                checked but not timed: width 20, two small ragged graphs
+                and a CSR with no edges.
 4. kernel_bwd — the same for the backward kernel (the VJP), against
                 ``mp_vjp_from_csr``, every output.
 5. slice      — inference as a user runs it: the trained Ψ-GNN checkpoint
@@ -57,6 +60,10 @@ import psignn_tpu_torch  # noqa: F401
 CKPT = "results/psignn_dirichlet/ckpt/best_model.ckpt"
 SWEEP_RADII = (1.0, 2.0, 5.0)
 HEADLINE_ITERS = 531
+# The model's latent width, and a width above 16 for the kernels' 32-lane
+# layout.
+WIDTH = 10
+WIDE = 20
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the f32 rate
 # outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -125,11 +132,11 @@ def cuda_ms(fn, reps: int = 200, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, name: str = "fused_mp_fwd_kernel",
-                     reps: int = 50) -> float | None:
-    """Device time per ``fn()`` call of the kernels whose name contains
-    ``name``, from ``torch.profiler``, or None when the profiler records no
-    device time on this machine."""
+def kernel_device_ms(fn, reps: int = 50) -> tuple[float, float]:
+    """(device ms, device kernels) per ``fn()`` call: every kernel the
+    device ran inside the calls, whatever its name, from ``torch.profiler``.
+    Raises when the profiler records no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -138,14 +145,11 @@ def kernel_device_ms(fn, name: str = "fused_mp_fwd_kernel",
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
-    for ev in prof.key_averages():
-        if name in ev.key:
-            us = getattr(ev, "device_time_total", None)
-            if us is None:
-                us = getattr(ev, "cuda_time_total", 0.0)
-            total += us or 0.0
-    return total / reps / 1000.0 if total else None
+    spans = [ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA]
+    if not sum(spans):
+        raise RuntimeError("torch.profiler recorded no device time")
+    return sum(spans) / reps / 1000.0, len(spans) / reps
 
 
 def fused_mp_bound(n: int, e: int, d: int, dh: int, d_out: int,
@@ -231,10 +235,13 @@ def phase_build() -> None:
 
 
 def mp_cases(graph, sample, tgraph, device):
-    """(mesh, edge_dim, direction, csr) of each kernel check, at the main
-    paths' shapes: the radius-5 headline mesh at edge_dim 3 and at DSS's
-    1-dim edge feature (the matrix value a_ij), then the train step's
-    50-mesh batch."""
+    """(mesh, edge_dim, direction, csr, width, timed) of each kernel check.
+    Timed, at the main paths' shapes: the radius-5 headline mesh at
+    edge_dim 3 and at DSS's 1-dim edge feature (the matrix value a_ij),
+    then the train step's 50-mesh batch.  Checked only: the headline mesh
+    at width 20 (32 lanes a row), a small ragged graph at the model's
+    widths and at width 12, edge_dim 2 (widths the kernels take at run
+    time), and a CSR with no edges."""
     from psignn_tpu_torch.kernels.fused_mp import pack_csr
     n = graph.total_nodes
     cases = []
@@ -245,67 +252,93 @@ def mp_cases(graph, sample, tgraph, device):
             else:
                 csr = pack_csr(sample["senders"], sample["receivers"],
                                sample["a_ij"], n, direction, device=device)
-            cases.append(("headline", edge_dim, direction, csr))
-    cases += [("train", 3, "to", tgraph.mp_to),
-              ("train", 3, "from", tgraph.mp_from)]
+            cases.append(("headline", edge_dim, direction, csr, WIDTH, True))
+    cases += [("train", 3, "to", tgraph.mp_to, WIDTH, True),
+              ("train", 3, "from", tgraph.mp_from, WIDTH, True),
+              ("headline", 3, "to", graph.mp_to, WIDE, False),
+              ("ragged", 3, "to", ragged_csr(3, device), WIDTH, False),
+              ("ragged", 2, "to", ragged_csr(2, device), 12, False),
+              ("empty", 3, "to", pack_csr([], [], np.zeros((0, 3), np.float32),
+                                          5, "to", device=device),
+               WIDTH, False)]
     return cases
 
 
-def phase_kernel(graph, sample, tgraph, device) -> dict:
-    """Forward kernel vs plain on the card at the main paths' shapes; the
-    ``kernels`` line reports the headline mesh's ``to`` case."""
+def ragged_csr(edge_dim: int, device):
+    """37 nodes (not a multiple of the rows a block takes), nodes 30-36
+    isolated, node 0 receiving and node 1 sending 40 edges (more than one
+    chunk of 32 edge indices, an odd tail)."""
+    from psignn_tpu_torch.kernels.fused_mp import pack_csr
+    rng = np.random.default_rng(5)
+    s, r = rng.integers(0, 30, 240), rng.integers(0, 30, 240)
+    r[:40], s[40:80] = 0, 1
+    ea = rng.normal(size=(240, edge_dim)).astype(np.float32)
+    return pack_csr(s, r, ea, 37, "to", device=device)
+
+
+def case_inputs(seed: int, csr, width: int, edge_dim: int, device):
+    """Seeded (w1, b1, w2, b2, h, g) at ``width`` for a case."""
+    from psignn_tpu_torch.nn import MLP
+    gen = torch.Generator().manual_seed(seed)
+    l1, l2 = MLP([2 * width + edge_dim, width, width], generator=gen).layers
+    h, g = (torch.randn(csr.n_rows, width, generator=gen) for _ in range(2))
+    return [t.detach().to(device) for t in
+            (l1.weight, l1.bias, l2.weight, l2.bias, h, g)]
+
+
+def kernel_entry(name: str, replaces: str, cases: list, main: tuple) -> dict:
+    """The ``kernels`` line's entry: times from the case ``main`` (mesh,
+    edge_dim, direction, width), the largest error of every case."""
+    entry = next(c for c in cases
+                 if (c["mesh"], c["edge_dim"], c["direction"], c["width"])
+                 == main)
+    return dict(name=name, route="cuda",
+                source=f"psignn_tpu_torch/kernels/csrc/{name}.cu",
+                replaces=replaces, launches=None,
+                max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=entry["ms"], plain_ms=entry["plain_ms"],
+                bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
+                library_ms=None)
+
+
+def phase_kernel(cases, device) -> dict:
+    """Forward kernel vs plain on the card; the ``kernels`` line reports
+    the headline mesh's ``to`` case."""
     from psignn_tpu_torch.kernels.fused_mp import (fused_message_passing,
                                                    mp_from_csr)
-    from psignn_tpu_torch.nn import MLP
-    D = 10
-    gen = torch.Generator().manual_seed(0)
-    hs = {"headline": torch.randn(graph.total_nodes, D, generator=gen)}
-    mlps = {k: MLP([2 * D + k, D, D], generator=gen).to(device).layers
-            for k in (3, 1)}
-    hs["train"] = torch.randn(tgraph.total_nodes, D, generator=gen)
-    cases = []
-    main_entry = None
-    for mesh, edge_dim, direction, csr in mp_cases(graph, sample, tgraph,
-                                                   device):
-        l1, l2 = mlps[edge_dim]
-        h = hs[mesh].to(device)
-        n = h.shape[0]
-        args = (l1.weight, l1.bias, l2.weight, l2.bias, h, csr)
+    done = []
+    for i, (mesh, edge_dim, direction, csr, width, timed) in enumerate(cases):
+        args = (*case_inputs(i, csr, width, edge_dim, device)[:5], csr)
         with torch.no_grad():
             out1 = fused_message_passing(*args)
             out2 = fused_message_passing(*args)
             ref = mp_from_csr(*args)
             torch.cuda.synchronize()
-            err = float((out1 - ref).abs().max())
-            scale = float(ref.abs().max())
-            identical = bool(torch.equal(out1, out2))
-            ms = cuda_ms(lambda: fused_message_passing(*args))
-            plain_ms = cuda_ms(lambda: mp_from_csr(*args))
-            dev_ms = kernel_device_ms(lambda: fused_message_passing(*args))
-        bound_ms, bound_by, nbytes, flops = fused_mp_bound(
-            n, csr.n_edges, D, D, D, edge_dim)
-        case = dict(mesh=mesh, direction=direction, edge_dim=edge_dim,
-                    n_rows=n, n_edges=csr.n_edges, max_abs_err=err,
-                    max_rel_err=err / max(scale, 1e-30),
-                    bit_identical=identical, ms=ms, device_ms=dev_ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, bytes=nbytes, flops=flops)
+            err = float((out1 - ref).abs().max()) if ref.numel() else 0.0
+            scale = float(ref.abs().max()) if ref.numel() else 0.0
+            case = dict(mesh=mesh, direction=direction, edge_dim=edge_dim,
+                        width=width, n_rows=csr.n_rows, n_edges=csr.n_edges,
+                        max_abs_err=err, max_rel_err=err / max(scale, 1e-30),
+                        bit_identical=bool(torch.equal(out1, out2)))
+            if timed:
+                dev_ms, dev_kernels = kernel_device_ms(
+                    lambda: fused_message_passing(*args))
+                bound_ms, bound_by, nbytes, flops = fused_mp_bound(
+                    csr.n_rows, csr.n_edges, width, width, width, edge_dim)
+                case.update(
+                    ms=cuda_ms(lambda: fused_message_passing(*args)),
+                    device_ms=dev_ms, device_kernels=dev_kernels,
+                    plain_ms=cuda_ms(lambda: mp_from_csr(*args)),
+                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                    flops=flops)
         emit("kernel", **case)
-        if not identical:
+        if not case["bit_identical"]:
             raise RuntimeError(f"fused_mp relaunch differs: {case}")
         if not err <= KERNEL_REL_TOL * max(1.0, scale):
             raise RuntimeError(f"fused_mp disagrees with plain: {case}")
-        cases.append(case)
-        if (mesh, edge_dim, direction) == ("headline", 3, "to"):
-            main_entry = case
-    return dict(
-        name="fused_mp_fwd", route="cuda",
-        source="psignn_tpu_torch/kernels/csrc/fused_mp_fwd.cu",
-        replaces="psignn_tpu/kernels/fused_mp.py:282",
-        launches=None, max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=main_entry["ms"], plain_ms=main_entry["plain_ms"],
-        bound_ms=main_entry["bound_ms"], bound_by=main_entry["bound_by"],
-        library_ms=None)
+        done.append(case)
+    return kernel_entry("fused_mp_fwd", "psignn_tpu/kernels/fused_mp.py:282",
+                        done, ("headline", 3, "to", WIDTH))
 
 
 def _sweep(device, radii, warmup, overrides=None, count_launches=False):
@@ -423,74 +456,55 @@ def phase_headline(graph, sample, device, smi: str) -> None:
          **device_breakdown(run))
 
 
-def phase_kernel_bwd(graph, sample, tgraph, device) -> dict:
-    """Backward kernel vs plain on the card at the main paths' shapes; the
-    ``kernels`` line reports the train batch's ``to`` case, the shapes of
-    the train step whose launches it counts."""
+def phase_kernel_bwd(cases, device) -> dict:
+    """Backward kernel vs plain on the card; the ``kernels`` line reports
+    the train batch's ``to`` case, the shapes of the train step whose
+    launches it counts."""
     from psignn_tpu_torch.kernels.fused_mp import fused_mp_vjp, mp_vjp_from_csr
-    from psignn_tpu_torch.nn import MLP
-    D = 10
     names = ("dw1", "db1", "dw2", "db2", "dh")
-    gen = torch.Generator().manual_seed(1)
-    n = graph.total_nodes
-    hgs = {"headline": (torch.randn(n, D, generator=gen),
-                        torch.randn(n, D, generator=gen))}
-    mlps = {k: MLP([2 * D + k, D, D], generator=gen).to(device).layers
-            for k in (3, 1)}
-    n = tgraph.total_nodes
-    hgs["train"] = (torch.randn(n, D, generator=gen),
-                    torch.randn(n, D, generator=gen))
-    cases = []
-    main_entry = None
-    for mesh, edge_dim, direction, csr in mp_cases(graph, sample, tgraph,
-                                                   device):
-        l1, l2 = mlps[edge_dim]
-        h, g = (t.to(device) for t in hgs[mesh])
-        n = h.shape[0]
-        args = (l1.weight, l1.bias, l2.weight, l2.bias, h, csr, g)
+    done = []
+    for i, (mesh, edge_dim, direction, csr, width, timed) in enumerate(cases):
+        w1, b1, w2, b2, h, g = case_inputs(100 + i, csr, width, edge_dim,
+                                           device)
+        args = (w1, b1, w2, b2, h, csr, g)
         with torch.no_grad():
             out1 = fused_mp_vjp(*args)
             out2 = fused_mp_vjp(*args)
             ref = mp_vjp_from_csr(*args)
             torch.cuda.synchronize()
-            errs = {k: float((a - b).abs().max())
+            errs = {k: float((a - b).abs().max()) if b.numel() else 0.0
                     for k, a, b in zip(names, out1, ref)}
-            scales = {k: float(b.abs().max()) for k, b in zip(names, ref)}
-            identical = all(torch.equal(a, b) for a, b in zip(out1, out2))
-            ms = cuda_ms(lambda: fused_mp_vjp(*args))
-            plain_ms = cuda_ms(lambda: mp_vjp_from_csr(*args))
-            dev_ms = kernel_device_ms(lambda: fused_mp_vjp(*args),
-                                      "fused_mp_bwd_")
-        bound_ms, bound_by, nbytes, flops = fused_mp_bwd_bound(
-            n, csr.n_edges, D, D, D, edge_dim)
-        case = dict(mesh=mesh, direction=direction, edge_dim=edge_dim,
-                    n_rows=n, n_edges=csr.n_edges, max_abs_err=errs,
-                    max_rel_err={k: errs[k] / max(scales[k], 1e-30)
-                                 for k in names},
-                    bit_identical=identical, ms=ms, device_ms=dev_ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, bytes=nbytes, flops=flops,
-                    library_ms=None)
+            scales = {k: float(b.abs().max()) if b.numel() else 0.0
+                      for k, b in zip(names, ref)}
+            case = dict(mesh=mesh, direction=direction, edge_dim=edge_dim,
+                        width=width, n_rows=csr.n_rows, n_edges=csr.n_edges,
+                        max_abs_err=errs,
+                        max_rel_err={k: errs[k] / max(scales[k], 1e-30)
+                                     for k in names},
+                        bit_identical=all(torch.equal(a, b)
+                                          for a, b in zip(out1, out2)))
+            if timed:
+                dev_ms, dev_kernels = kernel_device_ms(
+                    lambda: fused_mp_vjp(*args))
+                bound_ms, bound_by, nbytes, flops = fused_mp_bwd_bound(
+                    csr.n_rows, csr.n_edges, width, width, width, edge_dim)
+                case.update(
+                    ms=cuda_ms(lambda: fused_mp_vjp(*args)),
+                    device_ms=dev_ms, device_kernels=dev_kernels,
+                    plain_ms=cuda_ms(lambda: mp_vjp_from_csr(*args)),
+                    bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                    flops=flops, library_ms=None)
         emit("kernel_bwd", **case)
-        if not identical:
+        if not case["bit_identical"]:
             raise RuntimeError(f"fused_mp_bwd relaunch differs: {case}")
         bad = [k for k in names
                if not errs[k] <= BWD_KERNEL_REL_TOL * max(1.0, scales[k])]
         if bad:
             raise RuntimeError(f"fused_mp_bwd disagrees with plain in "
                                f"{bad}: {case}")
-        cases.append(case)
-        if (mesh, edge_dim, direction) == ("train", 3, "to"):
-            main_entry = case
-    return dict(
-        name="fused_mp_bwd", route="cuda",
-        source="psignn_tpu_torch/kernels/csrc/fused_mp_bwd.cu",
-        replaces="psignn_tpu/kernels/fused_mp.py:429",
-        launches=None,
-        max_abs_err=max(max(c["max_abs_err"].values()) for c in cases),
-        ms=main_entry["ms"], plain_ms=main_entry["plain_ms"],
-        bound_ms=main_entry["bound_ms"], bound_by=main_entry["bound_by"],
-        library_ms=None)
+        done.append(dict(case, max_abs_err=max(errs.values())))
+    return kernel_entry("fused_mp_bwd", "psignn_tpu/kernels/fused_mp.py:429",
+                        done, ("train", 3, "to", WIDTH))
 
 
 def train_graph(n_meshes: int, seed: int, device):
@@ -717,8 +731,9 @@ def main() -> None:
     t0 = time.perf_counter()
     tgraph = train_graph(TRAIN_MESHES, 0, device)
     tgraph_s = time.perf_counter() - t0
-    fwd = phase_kernel(graph, sample, tgraph, device)
-    bwd = phase_kernel_bwd(graph, sample, tgraph, device)
+    cases = mp_cases(graph, sample, tgraph, device)
+    fwd = phase_kernel(cases, device)
+    bwd = phase_kernel_bwd(cases, device)
     fwd["launches"] = phase_slice(device)
     phase_headline(graph, sample, device, smi)
     bwd["launches"] = phase_train_step(tgraph, tgraph_s, device, smi)

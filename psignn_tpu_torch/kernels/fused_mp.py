@@ -211,10 +211,21 @@ class _FusedMPVjp(torch.autograd.Function):
         return (*grads, None)
 
 
+# ctypes signatures of the C entry points (csrc/*.cu): a pointer or the
+# stream is c_void_p, an int c_int (tests/test_torch_fused_mp_abi.py reads
+# the sources and holds these to them).
+FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# Blocks of the backward's first two passes at most (4 per SM of an H100):
+# the rows are walked with a fixed stride, so the partial sums, and with
+# them the result's bits, depend only on the shapes.
+BWD_MAX_BLOCKS = 528
+
+
 @functools.cache
 def _kernel_fn():
     fn = build.load(KERNEL).psignn_fused_mp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = FWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -222,8 +233,7 @@ def _kernel_fn():
 @functools.cache
 def _bwd_kernel_fn():
     fn = build.load(KERNEL_BWD).psignn_fused_mp_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
+    fn.argtypes = BWD_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -288,8 +298,8 @@ def _fused_mp_cuda(w1, b1, w2, b2, h, csr: MPCsr) -> torch.Tensor:
 
 
 def _fused_mp_bwd_cuda(w1, b1, w2, b2, h, csr: MPCsr, g):
-    """The backward kernel, then the dense products the JAX package also
-    forms outside its kernel (``fused_mp.py:598-606``)."""
+    """The backward kernel: dh and every parameter gradient, the dense
+    products included, come out of its three passes."""
     global BWD_LAUNCHES
     d, dh, d_out, edge_dim = _check_call(w1, b1, w2, b2, h, csr)
     n, e, dev = h.shape[0], csr.n_edges, h.device
@@ -299,31 +309,27 @@ def _fused_mp_bwd_cuda(w1, b1, w2, b2, h, csr: MPCsr, g):
     _check("rev_oth", csr.rev_oth, i32, (e,), dev)
     _check("rev_edge_attr", csr.rev_edge_attr, f32, (e, edge_dim), dev)
 
-    gw = torch.empty((n, dh), dtype=f32, device=dev)
-    dpre = torch.empty((e, dh), dtype=f32, device=dev)
-    ar = torch.empty((n, dh), dtype=f32, device=dev)
-    dha = torch.empty((n, dh), dtype=f32, device=dev)
-    dhb = torch.empty((n, dh), dtype=f32, device=dev)
-    n_w2 = d_out * dh
-    params = torch.empty(n_w2 + d_out + dh + dh * edge_dim, dtype=f32,
-                         device=dev)
+    k_in = 2 * d + edge_dim
+    n_params = dh * k_in + dh + d_out * dh + d_out
+    base, gw, dha = (torch.empty((n, dh), dtype=f32, device=dev)
+                     for _ in range(3))
+    dh_out = torch.empty((n, d), dtype=f32, device=dev)
+    partials = torch.empty((BWD_MAX_BLOCKS, n_params), dtype=f32, device=dev)
+    params = torch.empty(n_params, dtype=f32, device=dev)
     rc = _bwd_kernel_fn()(
         h.data_ptr(), g.data_ptr(), csr.row_ptr.data_ptr(),
         csr.oth.data_ptr(), csr.edge_attr.data_ptr(),
         csr.rev_row_ptr.data_ptr(), csr.rev_oth.data_ptr(),
         csr.rev_edge_attr.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), gw.data_ptr(), dpre.data_ptr(), dha.data_ptr(),
-        dhb.data_ptr(), ar.data_ptr(), params.data_ptr(),
-        n, e, d, dh, d_out, edge_dim,
+        w2.data_ptr(), base.data_ptr(), gw.data_ptr(), dha.data_ptr(),
+        dh_out.data_ptr(),
+        partials.data_ptr(), params.data_ptr(),
+        n, d, dh, d_out, edge_dim, BWD_MAX_BLOCKS,
         torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_mp: backward kernel launch failed, "
                            f"cudaError {rc}")
     BWD_LAUNCHES += 1
-    dw2 = params[:n_w2].view(d_out, dh)
-    db2 = params[n_w2:n_w2 + d_out]
-    db1 = params[n_w2 + d_out:n_w2 + d_out + dh]
-    dw1c = params[n_w2 + d_out + dh:].view(dh, edge_dim)
-    dh_out = dha @ w1[:, :d] + dhb @ w1[:, d:2 * d]
-    dw1 = torch.cat([dha.T @ h, dhb.T @ h, dw1c], dim=1)
-    return dw1, db1, dw2, db2, dh_out
+    sizes = (dh * k_in, dh, d_out * dh, d_out)
+    dw1, db1, dw2, db2 = params.split(sizes)
+    return dw1.view(dh, k_in), db1, dw2.view(d_out, dh), db2, dh_out
