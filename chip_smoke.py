@@ -11,12 +11,13 @@ Phases, each printing one JSON line:
                 parallel.
 3. kernel     — the forward fused message-passing kernel against its
                 plain PyTorch version on the card, both directions, on the
-                radius-5 headline mesh at edge_dim 3 and 1 and on the
-                train step's 50-mesh batch: max error, bit-identical
-                relaunch, per-call times (CUDA events, and the device
-                time of every kernel the call launched), the bound.  Then,
-                checked but not timed: width 20, two small ragged graphs
-                and a CSR with no edges.
+                radius-5 headline mesh at edge_dim 3 and 1, on the train
+                step's 50-mesh batch, and on the mixed train batch's
+                ``from`` packing (the Neumann branch's): max error,
+                bit-identical relaunch, per-call times (CUDA events, and
+                the device time of every kernel the call launched), the
+                bound.  Then, checked but not timed: width 20, two small
+                ragged graphs and a CSR with no edges.
 4. kernel_bwd — the same for the backward kernel (the VJP), against
                 ``mp_vjp_from_csr``, every output.
 5. slice      — inference as a user runs it: the trained Ψ-GNN checkpoint
@@ -33,19 +34,37 @@ Phases, each printing one JSON line:
                 steps from one starting state with their kernel launches,
                 one profiled step, and a 2-mesh step on the GPU against the
                 same step on the CPU.
-8. trainer    — training as a user runs it: a fresh dataset from
-                ``data.generate``, one epoch of ``cli.main``, its logs and
-                checkpoints, and one sweep request answered from the new
-                ``best_model.ckpt`` by ``load_predictor``.
+8. mixed_eval — mixed Dirichlet+Neumann inference as a user runs it: a
+                fresh seeded mixed dataset from ``data.generate``, its test
+                split answered with the trained ``results/psignn_mixed``
+                checkpoint through ``run_eval``'s ``load_predictor`` →
+                ``split_dataset`` → ``GraphLoader`` → ``evaluate_dataset``
+                (three launches per f_θ call); then the same batch on the
+                CPU.
+9. mixed_train_step — the train step of phase 7 on 50 seeded mixed
+                meshes with the mixed weights, and its 2-mesh GPU-vs-CPU
+                step.
+10. solvers   — the radius-1 sweep mesh solved with the trained Dirichlet
+                weights by ``forward_iteration``, ``anderson`` and
+                Broyden with its line search, each against the CPU.
+11. trainer   — training as a user runs it, for each variant: a fresh
+                dataset from ``data.generate``, one epoch of ``cli.main``,
+                its logs and checkpoints, and one request answered from
+                the new ``best_model.ckpt``: a sweep request (Dirichlet),
+                the test-split table of ``run_eval`` (mixed).
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit
-line, and the last line ``{"ok": true, "device": {...}}``.  Any failure
+Then a ``seconds`` line (each phase's wall seconds; ``graphs`` builds the
+headline mesh and both 50-mesh batches), one ``{"kernels": [...]}`` line,
+the ``nvidia-smi`` name/power-limit line, and the last line
+``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero.  Imports nothing of JAX or ``psignn_tpu``.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -58,6 +77,7 @@ import torch
 import psignn_tpu_torch  # noqa: F401
 
 CKPT = "results/psignn_dirichlet/ckpt/best_model.ckpt"
+MIXED_CKPT = "results/psignn_mixed/ckpt/best_model.ckpt"
 SWEEP_RADII = (1.0, 2.0, 5.0)
 HEADLINE_ITERS = 531
 # The model's latent width, and a width above 16 for the kernels' 32-lane
@@ -103,6 +123,19 @@ CMP_MESHES = 2
 CMP_OVERRIDES = dict(fw_tol=1e-7, fw_thres=800, bw_tol=1e-8, bw_thres=800)
 CMP_LOSS_RTOL = 1e-3
 CMP_GRAD_RTOL = 5e-3
+# mixed_eval's fresh dataset: 10 radius-1 mixed meshes × 5 samples, split
+# 30/10/10; the 10 test samples are one batch
+MIXED_EVAL_DATA = dict(n_mesh=10, n_samples=5, radius=1.0, hsize=0.08,
+                       seed=11)
+# Broyden on that batch turns chaotic under f32 summation order from about
+# step 35, before it reaches REACHABLE_TOL (the CPU alone at 1, 2, 4 and 8
+# threads stops at 1e-3 with lowest values up to 40 % apart).  At 5e-3 every
+# thread count stops at step 29 with lowest values within 0.3 %, and step
+# 28 lies 15 % above it: the batch's nstep and lowest are compared there.
+MIXED_REACHABLE_TOL = 5e-3
+# the solvers phase: (solver, Armijo line search)
+SOLVER_CASES = (("forward_iteration", False), ("anderson", False),
+                ("broyden", True))
 
 
 def emit(phase: str, **kw) -> None:
@@ -234,11 +267,13 @@ def phase_build() -> None:
              library=str(res.path.name), ptxas=ptxas)
 
 
-def mp_cases(graph, sample, tgraph, device):
+def mp_cases(graph, sample, tgraph, mgraph, device):
     """(mesh, edge_dim, direction, csr, width, timed) of each kernel check.
     Timed, at the main paths' shapes: the radius-5 headline mesh at
     edge_dim 3 and at DSS's 1-dim edge feature (the matrix value a_ij),
-    then the train step's 50-mesh batch.  Checked only: the headline mesh
+    then the train step's 50-mesh batch, and the mixed 50-mesh batch's
+    ``from`` packing, which its Neumann branch adds to ``phi_from``'s.
+    Checked only: the headline mesh
     at width 20 (32 lanes a row), a small ragged graph at the model's
     widths and at width 12, edge_dim 2 (widths the kernels take at run
     time), and a CSR with no edges."""
@@ -255,6 +290,7 @@ def mp_cases(graph, sample, tgraph, device):
             cases.append(("headline", edge_dim, direction, csr, WIDTH, True))
     cases += [("train", 3, "to", tgraph.mp_to, WIDTH, True),
               ("train", 3, "from", tgraph.mp_from, WIDTH, True),
+              ("mixed_train", 3, "from", mgraph.mp_from, WIDTH, True),
               ("headline", 3, "to", graph.mp_to, WIDE, False),
               ("ragged", 3, "to", ragged_csr(3, device), WIDTH, False),
               ("ragged", 2, "to", ragged_csr(2, device), 12, False),
@@ -507,25 +543,30 @@ def phase_kernel_bwd(cases, device) -> dict:
                         done, ("train", 3, "to", WIDTH))
 
 
-def train_graph(n_meshes: int, seed: int, device):
+def train_graph(n_meshes: int, seed: int, device,
+                variant: str = "dirichlet"):
     """``bench.py``'s training batch: seeded radius-1 blob meshes (hsize
-    0.08), FEM-solved, concatenated into one graph."""
-    from psignn_tpu_torch.data.fem import solve_poisson
-    from psignn_tpu_torch.data.meshgen import blob_mesh
+    0.08; mixed-BC ones for ``variant='mixed'``), FEM-solved, concatenated
+    into one graph."""
+    from psignn_tpu_torch.data.fem import solve_poisson, solve_poisson_mixed
+    from psignn_tpu_torch.data.meshgen import blob_mesh, mixed_blob_mesh
     from psignn_tpu_torch.data.reader import psignn_sample_from_fem
     from psignn_tpu_torch.graphs import batch_graphs
+    make, solve = ((mixed_blob_mesh, solve_poisson_mixed)
+                   if variant == "mixed" else (blob_mesh, solve_poisson))
     rng = np.random.default_rng(seed)
     samples = []
     for _ in range(n_meshes):
-        mesh = blob_mesh(radius=1.0, hsize=0.08, rng=rng)
-        samples.append(psignn_sample_from_fem(solve_poisson(mesh, 1.0, rng)))
+        mesh = make(radius=1.0, hsize=0.08, rng=rng)
+        samples.append(psignn_sample_from_fem(solve(mesh, 1.0, rng),
+                                              variant=variant))
     return batch_graphs(samples, device=device)
 
 
-def trained_model(device, overrides):
-    """(model, cfg, initial state dict) of the trained checkpoint."""
+def trained_model(device, overrides, ckpt=CKPT):
+    """(model, cfg, initial state dict) of a trained checkpoint."""
     from psignn_tpu_torch.weights import load_psignn_checkpoint
-    model, cfg = load_psignn_checkpoint(CKPT, device, overrides)
+    model, cfg = load_psignn_checkpoint(ckpt, device, overrides)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     return model, cfg, init
 
@@ -560,21 +601,33 @@ def forward_seconds(model, cfg, init, graph, seed: int = 7) -> float:
     return time.perf_counter() - t0
 
 
-def expected_launches(res) -> tuple[int, int]:
-    """(forward, backward) kernel launches one train step implies: two per
-    f_θ call — the forward solve's calls, the tracked application and the
-    Jacobian loss's; and two per VJP of f_θ — each adjoint iteration's, the
-    route of the adjoint solution into the parameters, the Hutchinson VJP
-    and its own second-order backward through f_θ's forward."""
-    return 2 * (res.fw.calls + 2), 2 * (res.bw.calls + 3)
+def mp_per_call(cfg) -> int:
+    """Fused message passings in one f_θ call, each one kernel launch:
+    ``phi_to`` and ``phi_from`` per layer, and ``phi_neumann`` per layer in
+    the mixed variant."""
+    return (3 if cfg.bc_mode == "mixed" else 2) * cfg.n_layers
 
 
-def phase_train_step(graph, graph_s: float, device, smi: str) -> int:
-    """``graph`` is ``train_graph(TRAIN_MESHES, 0, device)``, built in
-    ``graph_s`` seconds."""
+def expected_launches(res, cfg) -> tuple[int, int]:
+    """(forward, backward) kernel launches one train step implies:
+    ``mp_per_call`` per f_θ call — the forward solve's calls, the tracked
+    application and the Jacobian loss's; and as many per VJP of f_θ — each
+    adjoint iteration's, the route of the adjoint solution into the
+    parameters, the Hutchinson VJP and its own second-order backward
+    through f_θ's forward."""
+    k = mp_per_call(cfg)
+    return k * (res.fw.calls + 2), k * (res.bw.calls + 3)
+
+
+def phase_train_step(graph, graph_s: float, device, smi: str,
+                     ckpt: str = CKPT, phase: str = "train_step"
+                     ) -> tuple[int, int]:
+    """``graph`` is ``train_graph(TRAIN_MESHES, 0, device, variant)`` of
+    the checkpoint's variant, built in ``graph_s`` seconds.  Returns the
+    first timed step's (forward, backward) launches."""
     from psignn_tpu_torch.kernels import fused_mp as mp
     t0 = time.perf_counter()
-    model, cfg, init = trained_model(device, TRAIN_OVERRIDES)
+    model, cfg, init = trained_model(device, TRAIN_OVERRIDES, ckpt)
     setup_s = graph_s + time.perf_counter() - t0
 
     step_from(model, cfg, init, graph)   # warm-up
@@ -584,7 +637,7 @@ def phase_train_step(graph, graph_s: float, device, smi: str) -> int:
         mp.LAUNCHES = mp.BWD_LAUNCHES = 0
         res, wall = step_from(model, cfg, init, graph)
         launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
-        want = expected_launches(res)
+        want = expected_launches(res, cfg)
         rec = dict(seconds=wall, loss=res.loss, losses=res.losses,
                    grad_norm=res.grad_norm, fw_nstep=res.fw.nstep,
                    fw_calls=res.fw.calls, fw_lowest=res.fw.lowest,
@@ -595,32 +648,33 @@ def phase_train_step(graph, graph_s: float, device, smi: str) -> int:
         finite = all(np.isfinite(v) for v in
                      [res.loss, res.grad_norm, *res.losses.values()])
         if not finite or launches != want or 0 in launches:
-            raise RuntimeError(f"train step failed: {rec}")
+            raise RuntimeError(f"{phase} failed: {rec}")
     best = min(r["seconds"] for r in steps)
     forward_s = forward_seconds(model, cfg, init, graph)
-    emit("train_step", card=smi, n_meshes=TRAIN_MESHES,
+    emit(phase, card=smi, bc_mode=cfg.bc_mode, n_meshes=TRAIN_MESHES,
          n_nodes=graph.total_nodes, n_edges=int(graph.senders.shape[0]),
          mp_edges=graph.mp_to.n_edges, setup_s=setup_s, step_s=best,
          step_s_all=[r["seconds"] for r in steps], forward_s=forward_s,
          backward_share=1.0 - forward_s / best,
          peak_mem_bytes=torch.cuda.max_memory_allocated(), steps=steps)
-    emit("train_step_profile", card=smi, unprofiled_step_s=best,
+    emit(phase + "_profile", card=smi, unprofiled_step_s=best,
          **device_breakdown(lambda: step_from(model, cfg, init, graph)))
-    phase_train_step_cpu_agreement(device)
-    return steps[0]["bwd_launches"]
+    phase_train_step_cpu_agreement(device, ckpt, cfg.bc_mode, phase)
+    return steps[0]["fwd_launches"], steps[0]["bwd_launches"]
 
 
-def phase_train_step_cpu_agreement(device) -> None:
+def phase_train_step_cpu_agreement(device, ckpt: str, variant: str,
+                                   phase: str) -> None:
     """The same step on 2 meshes on the GPU and on the CPU."""
-    out = {}
+    out = []
     for dev in (device, torch.device("cpu")):
-        graph = train_graph(CMP_MESHES, 1, dev)
-        model, cfg, init = trained_model(dev, CMP_OVERRIDES)
+        graph = train_graph(CMP_MESHES, 1, dev, variant)
+        model, cfg, init = trained_model(dev, CMP_OVERRIDES, ckpt)
         res, _ = step_from(model, cfg, init, graph)
         grads = {k: p.grad.detach().cpu() for k, p in
                  model.named_parameters()}
-        out[dev.type] = (res, grads)
-    (gpu, ggrad), (cpu, cgrad) = out["cuda"], out["cpu"]
+        out.append((res, grads))
+    (gpu, ggrad), (cpu, cgrad) = out
     loss_rel = {k: abs(gpu.losses[k] - cpu.losses[k])
                 / max(abs(cpu.losses[k]), 1e-30)
                 for k in ("residual_loss", "jacobian_loss", "encoder_loss",
@@ -638,65 +692,203 @@ def phase_train_step_cpu_agreement(device) -> None:
                max_grad_rel_diff=max(grad_rel.values()),
                worst_grad=max(grad_rel, key=grad_rel.get),
                loss_rtol=CMP_LOSS_RTOL, grad_rtol=CMP_GRAD_RTOL)
-    emit("train_step_cpu_agreement", **rec)
+    emit(phase + "_cpu_agreement", **rec)
     if (max(loss_rel.values()) > CMP_LOSS_RTOL
             or max(grad_rel.values()) > CMP_GRAD_RTOL):
-        raise RuntimeError(f"GPU and CPU train steps disagree: {rec}")
+        raise RuntimeError(f"GPU and CPU {phase}s disagree: {rec}")
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def counted_predictor(ckpt: str, device, overrides=None):
+    """(cfg, answer): ``answer(graph)`` runs ``load_predictor``'s predictor
+    on ``graph`` and returns (PsignnInference, record) with its host
+    seconds, f_θ calls and the kernel launches of the call."""
+    from psignn_tpu_torch.eval.run_eval import load_predictor
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    predict, _, cfg, model = load_predictor(ckpt, device, overrides)
+    calls = []
+    model.function.register_forward_hook(lambda *a: calls.append(1))
+
+    def answer(graph):
+        calls.clear()
+        sync(device)
+        mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = predict(graph)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        return out, dict(nstep=out.nstep, lowest=out.lowest,
+                         prot_break=out.prot_break, seconds=seconds,
+                         f_calls=len(calls), fwd_launches=mp.LAUNCHES,
+                         bwd_launches=mp.BWD_LAUNCHES)
+
+    return cfg, answer
+
+
+def phase_mixed_eval(device) -> int:
+    """A fresh mixed dataset's test split (one batch of 10 meshes) through
+    ``run_eval``'s path with the mixed checkpoint, on the card and on the
+    CPU.  Returns the card's forward launches."""
+    from psignn_tpu_torch.data.generate import generate_data
+    from psignn_tpu_torch.data.reader import (GraphLoader, load_dataset,
+                                              split_dataset)
+    from psignn_tpu_torch.eval.metrics import evaluate_dataset
+    data = os.path.join(".chipwork", "smoke_mixed_eval")
+    shutil.rmtree(data, ignore_errors=True)
+    t0 = time.perf_counter()
+    generate_data(data, variant="mixed", verbose=False, **MIXED_EVAL_DATA)
+    _, _, test = split_dataset(load_dataset(data, variant="mixed"),
+                               variant="mixed")
+    gen_s = time.perf_counter() - t0
+
+    def table(dev, overrides=None):
+        cfg, answer = counted_predictor(MIXED_CKPT, dev, overrides)
+        recs = []
+
+        def u(graph):
+            out, rec = answer(graph)
+            recs.append(rec)
+            return out.u
+
+        loader = GraphLoader(test, batch_size=len(test), device=dev)
+        means = {k: v for k, v in evaluate_dataset(
+            u, loader, verbose=False).items() if k.endswith("_mean")}
+        (rec,) = recs
+        return cfg, dict(rec, **means)
+
+    cfg, gpu = table(device)
+    n_nodes = sum(len(s["x"]) for s in test)
+    emit("mixed_eval", fw_tol=cfg.fw_tol, fw_thres=cfg.fw_thres,
+         n_graphs=len(test), n_nodes=n_nodes, generate_s=gen_s, **gpu)
+    if (gpu["fwd_launches"] != 3 * gpu["f_calls"] or gpu["f_calls"] == 0
+            or gpu["bwd_launches"] or gpu["prot_break"]
+            or not all(np.isfinite(v) for k, v in gpu.items()
+                       if k.endswith("_mean") or k == "lowest")):
+        raise RuntimeError(f"mixed_eval failed: {gpu}")
+
+    _, cpu = table("cpu")
+    res_rel = abs(gpu["res_mean"] - cpu["res_mean"]) / cpu["res_mean"]
+    _, gpu_r = table(device, dict(fw_tol=MIXED_REACHABLE_TOL))
+    _, cpu_r = table("cpu", dict(fw_tol=MIXED_REACHABLE_TOL))
+    low_rel = abs(gpu_r["lowest"] - cpu_r["lowest"]) / cpu_r["lowest"]
+    agree = dict(fw_tol=cfg.fw_tol, gpu=gpu, cpu=cpu, res_rel_diff=res_rel,
+                 reachable_tol=MIXED_REACHABLE_TOL, gpu_reachable=gpu_r,
+                 cpu_reachable=cpu_r, lowest_rel_diff=low_rel)
+    emit("mixed_eval_cpu_agreement", **agree)
+    if (res_rel > RES_REL_TOL or low_rel > LOWEST_REL_TOL
+            or abs(gpu_r["nstep"] - cpu_r["nstep"]) > NSTEP_SLACK
+            or cpu["prot_break"] or cpu_r["prot_break"]):
+        raise RuntimeError(f"GPU and CPU mixed tables disagree: {agree}")
+    return gpu["fwd_launches"]
+
+
+def phase_solvers(device) -> None:
+    """The radius-1 sweep mesh (the slice phase's) answered with the
+    trained Dirichlet weights by each solver of ``SOLVER_CASES``: at the
+    checkpoint's fw_tol on the card (timed, two launches per f_θ call),
+    and at ``REACHABLE_TOL`` on the card and on the CPU (compared)."""
+    from psignn_tpu_torch.data.fem import solve_poisson
+    from psignn_tpu_torch.data.meshgen import blob_mesh
+    from psignn_tpu_torch.data.reader import psignn_sample_from_fem
+    from psignn_tpu_torch.graphs import batch_graphs
+    rng = np.random.default_rng(0)
+    mesh = blob_mesh(radius=1.0, hsize=0.08, rng=rng)
+    sample = psignn_sample_from_fem(solve_poisson(mesh, 1.0, rng))
+    cpu = torch.device("cpu")
+    graphs = {dev: batch_graphs([sample], device=dev) for dev in (device, cpu)}
+
+    def solve(dev, solver, ls, overrides=None):
+        cfg, answer = counted_predictor(CKPT, dev, dict(
+            solver=solver, ls=ls, **(overrides or {})))
+        return cfg, answer(graphs[dev])[1]
+
+    for solver, ls in SOLVER_CASES:
+        reach = dict(fw_tol=REACHABLE_TOL)
+        _, gpu_r = solve(device, solver, ls, reach)    # also the warm-up
+        cfg, gpu = solve(device, solver, ls)
+        _, cpu_r = solve(cpu, solver, ls, reach)
+        low_rel = abs(gpu_r["lowest"] - cpu_r["lowest"]) / cpu_r["lowest"]
+        rec = dict(solver=solver, ls=ls, n_nodes=graphs[cpu].total_nodes,
+                   fw_tol=cfg.fw_tol, fw_thres=cfg.fw_thres, gpu=gpu,
+                   reachable_tol=REACHABLE_TOL, gpu_reachable=gpu_r,
+                   cpu_reachable=cpu_r, lowest_rel_diff=low_rel)
+        emit("solvers", **rec)
+        if (gpu["fwd_launches"] != 2 * gpu["f_calls"] or gpu["f_calls"] == 0
+                or not np.isfinite(gpu["lowest"]) or gpu["prot_break"]
+                or low_rel > LOWEST_REL_TOL
+                or abs(gpu_r["nstep"] - cpu_r["nstep"]) > NSTEP_SLACK
+                or cpu_r["prot_break"]):
+            raise RuntimeError(f"solver {solver} (ls={ls}) failed: {rec}")
 
 
 def phase_trainer(device) -> None:
-    """A fresh 4-mesh × 5-sample dataset (12/4/4 split), one epoch of the
-    CLI at batch 4 (three train steps, one validation step with the power
-    method), then one sweep request from the new best checkpoint."""
-    import os
-    import shutil
-
+    """For each variant: a fresh 4-mesh × 5-sample dataset (12/4/4 split),
+    one epoch of the CLI at batch 4 (three train steps, one validation step
+    with the power method), then one request from the new best checkpoint:
+    a sweep request (Dirichlet), the test-split table of ``run_eval``
+    (mixed)."""
     from psignn_tpu_torch.cli.main import main as train_main
     from psignn_tpu_torch.data.generate import generate_data
-    from psignn_tpu_torch.eval.run_eval import load_predictor
+    from psignn_tpu_torch.eval import run_eval
     from psignn_tpu_torch.eval.sweep import growing_geometry_sweep
     from psignn_tpu_torch.kernels import fused_mp as mp
-    work = os.path.join(".chipwork", "smoke_trainer")
-    shutil.rmtree(work, ignore_errors=True)
-    data, results = os.path.join(work, "data"), os.path.join(work, "results")
-    t0 = time.perf_counter()
-    generate_data(data, n_mesh=4, n_samples=5, radius=1.0, hsize=0.08,
-                  verbose=False)
-    gen_s = time.perf_counter() - t0
-    mp.LAUNCHES = mp.BWD_LAUNCHES = 0
-    t0 = time.perf_counter()
-    train_main(["--path_dataset", data, "--path_results", results,
-                "--batch_size", "4", "--max_epochs", "1",
-                "--device", str(device)])
-    train_s = time.perf_counter() - t0
-    launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
-    logs = os.path.join(results, "logs")
-    lines = {}
-    for name in ("train_metrics.csv", "forward_iteration.csv",
-                 "backward_iteration.csv", "spectral_radius.csv",
-                 "model_config.csv"):
-        with open(os.path.join(logs, name)) as f:
-            lines[name] = len(f.read().strip().splitlines())
-    ckpts = {name: os.path.exists(os.path.join(results, "ckpt",
-                                               name + ".ckpt"))
-             for name in ("running_model", "best_model", "final_model")}
-    predict, family, _, _ = load_predictor(
-        os.path.join(results, "ckpt", "best_model.ckpt"), device)
-    req = growing_geometry_sweep({family: predict}, radii=(1.0,), n_meshes=1,
-                                 hsize=0.08, seed=0, device=device,
-                                 warmup=False)[family][1.0]
-    rec = dict(generate_s=gen_s, train_s=train_s, fwd_launches=launches[0],
-               bwd_launches=launches[1], log_lines=lines, checkpoints=ckpts,
-               request=dict(n_nodes=req["n_nodes"], nstep=req["nstep"],
-                            res=req["res"], mse=req["mse"]))
-    emit("trainer", **rec)
-    # header + 3 steps in each iteration log, one spectral radius
-    if (not all(ckpts.values()) or 0 in launches
-            or lines["forward_iteration.csv"] != 4
-            or lines["backward_iteration.csv"] != 4
-            or lines["spectral_radius.csv"] != 2
-            or not all(np.isfinite(req[k]) for k in ("res", "mse"))):
-        raise RuntimeError(f"trainer phase failed: {rec}")
+    for variant in ("dirichlet", "mixed"):
+        work = os.path.join(".chipwork", "smoke_trainer", variant)
+        shutil.rmtree(work, ignore_errors=True)
+        data = os.path.join(work, "data")
+        results = os.path.join(work, "results")
+        t0 = time.perf_counter()
+        generate_data(data, n_mesh=4, n_samples=5, radius=1.0, hsize=0.08,
+                      variant=variant, verbose=False)
+        gen_s = time.perf_counter() - t0
+        mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        train_main(["--variant", variant, "--path_dataset", data,
+                    "--path_results", results, "--batch_size", "4",
+                    "--max_epochs", "1", "--device", str(device)])
+        train_s = time.perf_counter() - t0
+        launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
+        logs = os.path.join(results, "logs")
+        lines = {}
+        for name in ("train_metrics.csv", "forward_iteration.csv",
+                     "backward_iteration.csv", "spectral_radius.csv",
+                     "model_config.csv"):
+            with open(os.path.join(logs, name)) as f:
+                lines[name] = len(f.read().strip().splitlines())
+        ckpts = {name: os.path.exists(os.path.join(results, "ckpt",
+                                                   name + ".ckpt"))
+                 for name in ("running_model", "best_model", "final_model")}
+        best = os.path.join(results, "ckpt", "best_model.ckpt")
+        if variant == "dirichlet":
+            predict, family, _, _ = run_eval.load_predictor(best, device)
+            req = growing_geometry_sweep(
+                {family: predict}, radii=(1.0,), n_meshes=1, hsize=0.08,
+                seed=0, device=device, warmup=False)[family][1.0]
+            req = {k: req[k] for k in ("n_nodes", "nstep", "res", "mse")}
+        else:
+            out = os.path.join(work, "eval")
+            run_eval.main(["--ckpt", best, "--variant", "mixed",
+                           "--path_dataset", data, "--batch_size", "4",
+                           "--out", out, "--device", str(device)])
+            with open(os.path.join(out, "test_metrics.json")) as f:
+                table = json.load(f)
+            req = dict(res=table["res_mean"], mse=table["mse_mean"],
+                       rel=table["rel_mean"])
+        rec = dict(variant=variant, generate_s=gen_s, train_s=train_s,
+                   fwd_launches=launches[0], bwd_launches=launches[1],
+                   log_lines=lines, checkpoints=ckpts, request=req)
+        emit("trainer", **rec)
+        # header + 3 steps in each iteration log, one spectral radius
+        if (not all(ckpts.values()) or 0 in launches
+                or lines["forward_iteration.csv"] != 4
+                or lines["backward_iteration.csv"] != 4
+                or lines["spectral_radius.csv"] != 2
+                or not all(np.isfinite(req[k]) for k in ("res", "mse"))):
+            raise RuntimeError(f"trainer phase failed: {rec}")
 
 
 def device_breakdown(run, top: int = 8) -> dict:
@@ -724,20 +916,38 @@ def device_breakdown(run, top: int = 8) -> dict:
 
 
 def main() -> None:
-    smi = phase_device()
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi = timed("device", phase_device)
     device = torch.device("cuda")
-    phase_build()
-    graph, sample = headline_graph(device)
-    t0 = time.perf_counter()
-    tgraph = train_graph(TRAIN_MESHES, 0, device)
-    tgraph_s = time.perf_counter() - t0
-    cases = mp_cases(graph, sample, tgraph, device)
-    fwd = phase_kernel(cases, device)
-    bwd = phase_kernel_bwd(cases, device)
-    fwd["launches"] = phase_slice(device)
-    phase_headline(graph, sample, device, smi)
-    bwd["launches"] = phase_train_step(tgraph, tgraph_s, device, smi)
-    phase_trainer(device)
+    timed("build", phase_build)
+    graph, sample = timed("graphs", headline_graph, device)
+    built = {}
+    for variant in ("dirichlet", "mixed"):
+        t0 = time.perf_counter()
+        g = train_graph(TRAIN_MESHES, 0, device, variant)
+        built[variant] = (g, time.perf_counter() - t0)
+    seconds["graphs"] += sum(t for _, t in built.values())
+    (tgraph, tgraph_s), (mgraph, mgraph_s) = built.values()
+    cases = mp_cases(graph, sample, tgraph, mgraph, device)
+    fwd = timed("kernel", phase_kernel, cases, device)
+    bwd = timed("kernel_bwd", phase_kernel_bwd, cases, device)
+    fwd["launches"] = timed("slice", phase_slice, device)
+    timed("headline", phase_headline, graph, sample, device, smi)
+    bwd["launches"] = timed("train_step", phase_train_step, tgraph, tgraph_s,
+                            device, smi)[1]
+    timed("mixed_eval", phase_mixed_eval, device)
+    timed("mixed_train_step", phase_train_step, mgraph, mgraph_s, device,
+          smi, MIXED_CKPT, "mixed_train_step")
+    timed("solvers", phase_solvers, device)
+    timed("trainer", phase_trainer, device)
+    emit("seconds", **seconds)
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

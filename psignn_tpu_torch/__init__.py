@@ -1,24 +1,28 @@
 """psignn_tpu_torch — the PyTorch/CUDA port of ``psignn_tpu``.
 
-Runs Ψ-GNN Dirichlet inference (fresh mesh → FEM system → encoder →
-Broyden fixed point of the update function → decoder → residual metrics)
-and training (implicit-gradient DEQ step, dual Adam, trainer and CLI) on
-an NVIDIA GPU, with the fused message passing and its backward as
-hand-written CUDA kernels (``kernels/csrc/fused_mp_{fwd,bwd}.cu``).
-Module names mirror the JAX package so each counterpart is easy to find:
+Runs Ψ-GNN inference (fresh mesh → FEM system → encoder → fixed point of
+the update function → decoder → residual metrics) and training
+(implicit-gradient DEQ step, dual Adam, trainer and CLI), with Dirichlet
+or mixed Dirichlet+Neumann conditions, on an NVIDIA GPU, with the fused
+message passing and its backward as hand-written CUDA kernels
+(``kernels/csrc/fused_mp_{fwd,bwd}.cu``).  Module names mirror the JAX
+package so each counterpart is easy to find:
 
   graphs   — unpadded concatenated mesh graphs + CSR edge packings
   nn       — Xavier-initialised MLP blocks
   ops      — message passing, SpMV residual, masked means
-  solvers  — Broyden (others not yet ported)
+  solvers  — Picard, Anderson, Broyden (+ Armijo line search); Newton and
+             Newton-Krylov not yet ported
   deq      — forward solve, implicit backward, Jacobian regularisers
-  models   — Ψ-GNN (Dirichlet), inference and the training forward
+  models   — Ψ-GNN (Dirichlet and mixed), inference, the training forward
   weights  — JAX parameter trees and checkpoints ↔ port modules
-  data     — blob meshes, P1 FEM assembly, samples, dataset factory/loader
+  data     — blob and mixed meshes, P1 FEM assembly, samples, dataset
+             factory and loader
   kernels  — the CUDA fused message-passing kernels and plain versions
   train    — optimizers, the train step, checkpoints, the trainer
   cli      — the training command line
-  eval     — per-graph metrics and the growing-geometry sweep
+  eval     — per-graph metrics, the test-split table and the
+             growing-geometry sweep
 
 The package imports torch, numpy and scipy only — never JAX or the JAX
 package.  Entry points run on ``cuda`` unless the caller passes

@@ -1,18 +1,19 @@
-"""Training CLI of the port: Ψ-GNN, Dirichlet, one device.
+"""Training CLI of the port: Ψ-GNN, Dirichlet or mixed, one device.
 
 Port of ``psignn_tpu/cli/main.py`` for the paths the port has::
 
-    python -m psignn_tpu_torch.cli.main --family psignn --variant dirichlet \\
+    python -m psignn_tpu_torch.cli.main --family psignn --variant mixed \\
         --path_dataset data/ --solver broyden --fw_tol 1e-5 --fw_thres 500 \\
         --lr_deq 0.01 --lr_ae 0.05 --jac_weight 1.0 --batch_size 50
 
-The flags keep the JAX CLI's names and defaults.  A flag for a path that
-is not yet ported (``--family dss|dsgps``, ``--variant mixed``,
+The flags keep the JAX CLI's names and defaults; ``--solver`` also takes
+``picard``, another name of ``forward_iteration``.  A flag
+for a path that is not yet ported (``--family dss|dsgps``,
 ``--num_devices`` other than 1, ``--stacked_batch``, ``--lowrank_*``,
-``--broyden_ls``, a solver other than Broyden, ``--precision bfloat16``)
-is refused; the TPU-only ``--rcm``, ``--pallas`` and ``--cache_batches``
-and the DSS/DS-GPS knobs are not flags here.  ``--device`` picks the torch
-device (default: cuda).
+``--solver newton|newton_krylov``, ``--precision bfloat16``) is refused;
+the TPU-only ``--rcm``, ``--pallas`` and ``--cache_batches`` and the
+DSS/DS-GPS knobs are not flags here.  ``--device`` picks the torch device
+(default: cuda).  The mixed variant's split is shuffled by ``--seed``.
 
 A run without ``--resume`` starts afresh: it deletes the ``ckpt/`` and
 ``logs/`` an earlier run left in ``--path_results`` (default
@@ -56,8 +57,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--sched_step_ae", type=float, default=0.5)
     # solver / DEQ
     p.add_argument("--solver", type=str, default="broyden",
-                   choices=["broyden", "forward_iteration", "anderson",
-                            "newton", "newton_krylov"])
+                   choices=["broyden", "forward_iteration", "picard",
+                            "anderson", "newton", "newton_krylov"])
     p.add_argument("--jac_weight", type=float, default=1.0)
     p.add_argument("--latent_dim", type=int, default=10)
     p.add_argument("--n_layers", type=int, default=1)
@@ -65,10 +66,12 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--fw_thres", type=int, default=500)
     p.add_argument("--bw_tol", type=float, default=1e-8)
     p.add_argument("--bw_thres", type=int, default=500)
+    p.add_argument("--broyden_ls", action="store_true",
+                   help="Armijo line search on each Broyden step "
+                        "(reference broyden(..., ls=True))")
     # devices and options of paths not yet ported (refused unless default)
     p.add_argument("--num_devices", type=int, default=1)
     p.add_argument("--lowrank_bf16", action="store_true")
-    p.add_argument("--broyden_ls", action="store_true")
     p.add_argument("--lowrank_max_rank", type=int, default=0)
     p.add_argument("--stacked_batch", action="store_true")
     p.add_argument("--spike_guard", action="store_true",
@@ -89,14 +92,13 @@ def refuse_unported(p: argparse.ArgumentParser, args) -> None:
     """``p.error`` on any flag value whose path the port does not have."""
     unported = [
         (args.family != "psignn", f"--family {args.family}"),
-        (args.variant != "dirichlet", f"--variant {args.variant}"),
-        (args.solver != "broyden", f"--solver {args.solver}"),
+        (args.solver in ("newton", "newton_krylov"),
+         f"--solver {args.solver}"),
         (args.num_devices != 1, f"--num_devices {args.num_devices}"),
         (args.precision != "float32", f"--precision {args.precision}"),
         (args.stacked_batch, "--stacked_batch"),
         (args.lowrank_bf16, "--lowrank_bf16"),
         (args.lowrank_max_rank != 0, "--lowrank_max_rank"),
-        (args.broyden_ls, "--broyden_ls"),
     ]
     bad = [name for cond, name in unported if cond]
     if bad:
@@ -133,17 +135,20 @@ def main(argv=None):
         clear_results(p, args.path_results)
     os.makedirs(args.path_results, exist_ok=True)
 
-    samples = load_dataset(args.path_dataset, stats=args.stats)
-    train, val, _ = split_dataset(samples)
+    samples = load_dataset(args.path_dataset, variant=args.variant,
+                           stats=args.stats)
+    train, val, _ = split_dataset(samples, variant=args.variant,
+                                  seed=args.seed)
     loader_train = GraphLoader(train, batch_size=args.batch_size,
                                shuffle=True, seed=args.seed,
                                device=args.device)
     loader_val = GraphLoader(val, batch_size=args.batch_size,
                              device=args.device)
     model_cfg = PsignnConfig(latent_dim=args.latent_dim,
-                             n_layers=args.n_layers, solver=args.solver,
-                             fw_tol=args.fw_tol, fw_thres=args.fw_thres,
-                             bw_tol=args.bw_tol, bw_thres=args.bw_thres)
+                             n_layers=args.n_layers, bc_mode=args.variant,
+                             solver=args.solver, fw_tol=args.fw_tol,
+                             fw_thres=args.fw_thres, bw_tol=args.bw_tol,
+                             bw_thres=args.bw_thres, ls=args.broyden_ls)
     cfg = TrainConfig(
         model_cfg=model_cfg, max_epochs=args.max_epochs,
         lr_deq=args.lr_deq, lr_ae=args.lr_ae,

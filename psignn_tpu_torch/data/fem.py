@@ -1,10 +1,13 @@
 """P1 (linear Lagrange) FEM assembly and Poisson sampling (numpy + scipy).
 
 Port of ``psignn_tpu/data/fem.py`` (``assemble_p1``, ``apply_dirichlet``,
-``random_quadratics``, ``compute_edge_distance``, ``solve_poisson``).
-Dirichlet rows are overwritten dolfin-style — row zeroed, unit diagonal,
-rhs = boundary value — and their columns are kept, so ``A`` is NOT
-symmetric: the "to" and "from" message-passing packings differ.
+``random_quadratics``, ``compute_edge_distance``, ``solve_poisson``,
+``vertex_unit_normals``, ``solve_poisson_mixed``).  Dirichlet rows are
+overwritten dolfin-style — row zeroed, unit diagonal, rhs = boundary
+value — and their columns are kept, so ``A`` is NOT symmetric: the "to"
+and "from" message-passing packings differ.  In the mixed variant the
+homogeneous Neumann condition is natural in the weak form: its rows are
+left as assembled.
 """
 
 from __future__ import annotations
@@ -146,3 +149,68 @@ def solve_poisson(mesh: Mesh, radius: float = 1.0,
     return dict(A=A.astype(np.float64), b=b.reshape(-1, 1),
                 coordinates=mesh.points, sol=sol, prb_data=prb_data,
                 tags=tags, distance=distance)
+
+
+def vertex_unit_normals(mesh: Mesh) -> np.ndarray:
+    """(N, 2) outward unit normals on boundary vertices, 0 inside: the
+    edge-length-weighted mean of a vertex's two facet normals, normalised.
+    The boundary loop is CCW, so facet t = (dx, dy) has outward normal
+    (dy, −dx)."""
+    normals = np.zeros((mesh.n_points, 2))
+    loop = mesh.boundary_loop
+    if loop is None or len(loop) == 0:
+        return normals
+    p = mesh.points[loop]
+    edge = np.roll(p, -1, axis=0) - p           # facet i: loop[i]→loop[i+1]
+    fn = np.stack([edge[:, 1], -edge[:, 0]], axis=1)
+    vn = fn + np.roll(fn, 1, axis=0)            # facets i-1 and i
+    norm = np.linalg.norm(vn, axis=1, keepdims=True)
+    vn = np.divide(vn, norm, out=np.zeros_like(vn), where=norm > 0)
+    normals[loop] = vn
+    return normals
+
+
+def solve_poisson_mixed(mesh: Mesh, radius: float = 1.0,
+                        rng: Optional[np.random.Generator] = None,
+                        tag_dirichlet: int = 101) -> Dict[str, np.ndarray]:
+    """One mixed-BC Poisson sample: Dirichlet rows on the 101-tagged
+    vertices only.  ``tags`` is one-hot [interior, dirichlet, neumann] and
+    ``prb_data`` is [f, g, f_neumann]; ``unit_normal_vector`` (N, 2) is
+    added to ``solve_poisson``'s keys."""
+    if rng is None:
+        rng = np.random.default_rng()
+    f_fn, g_fn = random_quadratics(rng, radius)
+    A, b = assemble_p1(mesh, f_fn)
+
+    normals = vertex_unit_normals(mesh)
+    didx = np.where(mesh.boundary_tag == tag_dirichlet)[0]
+    gvals = g_fn(mesh.points[didx, 0], mesh.points[didx, 1])
+    A, b = apply_dirichlet(A, b, didx, gvals)
+
+    sol = spla.spsolve(A.tocsc(), b).reshape(-1, 1)
+
+    n = mesh.n_points
+    f_all = f_fn(mesh.points[:, 0], mesh.points[:, 1])
+    # the whole boundary is marked Neumann first, then the Dirichlet rows
+    # are overwritten: the order of these writes is the encoding
+    tags = np.zeros((n, 3))
+    tags[:, 0] = 1.0
+    full_bnd = np.where(mesh.boundary_mask)[0]
+    tags[full_bnd, 0] = 0.0
+    tags[full_bnd, 2] = 1.0
+    prb_data = np.zeros((n, 3))
+    prb_data[:, 0] = f_all
+    prb_data[full_bnd, 2] = prb_data[full_bnd, 0]
+    prb_data[full_bnd, 0] = 0.0
+    tags[didx, 1] = 1.0
+    tags[didx, 2] = 0.0
+    prb_data[didx, 1] = gvals
+    prb_data[didx, 2] = 0.0
+
+    coeff = sp.find(A)
+    edge_index = np.stack([coeff[0], coeff[1]], axis=1).astype(np.int64)
+    distance = compute_edge_distance(edge_index, mesh.points)
+
+    return dict(A=A.astype(np.float64), b=b.reshape(-1, 1),
+                coordinates=mesh.points, sol=sol, prb_data=prb_data,
+                tags=tags, distance=distance, unit_normal_vector=normals)

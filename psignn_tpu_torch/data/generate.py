@@ -1,15 +1,15 @@
 """Dataset factory: n_mesh meshes × n_samples RHS samples → .npy archives.
 
-Port of ``psignn_tpu/data/generate.py`` (Dirichlet variant), in the
-reference's format (``dirichlet/dataset/generate_data.py:25-98``): seven
-pickled object arrays (A_sparse_matrix, b_matrix, sol, prb_data, tags,
-coordinates, distance) and a ``dataset_info.csv``.  The same seed draws
-the same numbers in the same order as the JAX package's factory, so both
-write the same dataset.  The DSS encoding (``add_dss_variable``) and the
-mixed variant are not ported yet.
+Port of ``psignn_tpu/data/generate.py``, in the reference's format
+(``dirichlet/dataset/generate_data.py:25-98``): seven pickled object arrays
+(A_sparse_matrix, b_matrix, sol, prb_data, tags, coordinates, distance),
+an eighth (unit_normal_vector) in the mixed variant, and a
+``dataset_info.csv``.  The same seed draws the same numbers in the same
+order as the JAX package's factory, so both write the same dataset.  The
+DSS encoding (``add_dss_variable``) is not ported yet.
 
     python -m psignn_tpu_torch.data.generate --path_data data/ \\
-        --n_mesh 200 --n_samples 50
+        --n_mesh 200 --n_samples 50 [--variant mixed]
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from typing import Dict
 
 import numpy as np
 
-from .fem import solve_poisson
-from .meshgen import blob_mesh
+from .fem import solve_poisson, solve_poisson_mixed
+from .meshgen import blob_mesh, mixed_blob_mesh
 
 KEYS = ("A_sparse_matrix", "b_matrix", "sol", "prb_data", "tags",
         "coordinates", "distance")
@@ -32,18 +32,24 @@ def generate_data(path_data: str, n_mesh: int = 200, n_samples: int = 50,
                   nb_bound_points: int = 10, seed: int = 1234,
                   variant: str = "dirichlet",
                   verbose: bool = True) -> Dict[str, list]:
-    if variant != "dirichlet":
-        raise NotImplementedError(f"variant '{variant}' is not yet ported")
+    if variant == "mixed":
+        keys, make_mesh, solve = (KEYS + ("unit_normal_vector",),
+                                  mixed_blob_mesh, solve_poisson_mixed)
+    elif variant == "dirichlet":
+        keys, make_mesh, solve = KEYS, blob_mesh, solve_poisson
+    else:
+        raise ValueError(f"variant must be 'dirichlet' or 'mixed', "
+                         f"not {variant!r}")
     rng = np.random.default_rng(seed)
-    lists = {k: [] for k in KEYS}
+    lists = {k: [] for k in keys}
     fem_key = {"A_sparse_matrix": "A", "b_matrix": "b"}
 
     for n in range(n_mesh):
-        mesh = blob_mesh(radius=radius, hsize=hsize,
+        mesh = make_mesh(radius=radius, hsize=hsize,
                          nb_bound_points=nb_bound_points, rng=rng)
         for _ in range(n_samples):
-            s = solve_poisson(mesh, radius, rng)
-            for k in KEYS:
+            s = solve(mesh, radius, rng)
+            for k in keys:
                 lists[k].append(s[fem_key.get(k, k)])
         if verbose and (n + 1) % 10 == 0:
             print(f"mesh {n + 1}/{n_mesh} ({mesh.n_points} nodes)")
@@ -85,9 +91,11 @@ def main(argv=None):
     p.add_argument("--radius", type=float, default=1.0)
     p.add_argument("--hsize", type=float, default=0.08)
     p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--variant", type=str, default="dirichlet",
+                   choices=["dirichlet", "mixed"])
     args = p.parse_args(argv)
     generate_data(args.path_data, args.n_mesh, args.n_samples, args.radius,
-                  args.hsize, seed=args.seed)
+                  args.hsize, seed=args.seed, variant=args.variant)
 
 
 if __name__ == "__main__":

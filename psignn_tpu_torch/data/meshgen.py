@@ -1,10 +1,12 @@
 """Random blob-domain triangular meshes (numpy + scipy only).
 
-Port of ``psignn_tpu/data/meshgen.py`` (``Mesh``, ``blob_mesh`` and its
-helpers).  The domain family is the reference's: perturbed circle points,
-a periodic cubic spline through them, boundary samples at ≈``hsize``
-arc-length spacing, a jittered hex lattice inside, four Laplacian
-smoothing passes, and a Delaunay triangulation clipped to the polygon.
+Port of ``psignn_tpu/data/meshgen.py`` (``Mesh``, ``blob_mesh``,
+``mixed_blob_mesh`` and their helpers).  The domain family is the
+reference's: perturbed circle points, a periodic cubic spline through them,
+boundary samples at ≈``hsize`` arc-length spacing, a jittered hex lattice
+inside, four Laplacian smoothing passes, and a Delaunay triangulation
+clipped to the polygon.  The mixed variant tags the boundary vertices
+Dirichlet (101) or Neumann (303) by arcs.
 
 The one change: ``matplotlib.path.Path.contains_points`` becomes
 ``points_in_polygon``, a numpy even-odd crossing test written with the same
@@ -74,8 +76,10 @@ def _boundary_spline(radius: float, nb_bound_points: int,
     return CubicSpline(s, pts, bc_type="periodic")
 
 
-def _sample_boundary(spline, n_ctrl: int, hsize: float) -> np.ndarray:
-    """Sample the closed curve at ≈hsize arc-length spacing."""
+def _sample_boundary(spline, n_ctrl: int, hsize: float,
+                     return_params: bool = False):
+    """Sample the closed curve at ≈hsize arc-length spacing; with
+    ``return_params`` also the spline parameter of each sample."""
     dense_t = np.linspace(0.0, n_ctrl - 1, 4096, endpoint=False)
     dense = spline(dense_t)
     seg = np.linalg.norm(np.diff(dense, axis=0, append=dense[:1]), axis=1)
@@ -84,6 +88,8 @@ def _sample_boundary(spline, n_ctrl: int, hsize: float) -> np.ndarray:
     n_bnd = max(8, int(round(total / hsize)))
     targets = np.linspace(0.0, total, n_bnd, endpoint=False)
     idx = np.clip(np.searchsorted(arclen, targets), 0, len(dense) - 1)
+    if return_params:
+        return dense[idx], dense_t[idx]
     return dense[idx]
 
 
@@ -157,6 +163,17 @@ def _finalize_mesh(points: np.ndarray, triangles: np.ndarray,
                 boundary_mask=bmask, boundary_tag=btag, boundary_loop=loop)
 
 
+def _triangulate(boundary: np.ndarray, interior: np.ndarray,
+                 bnd_tags: np.ndarray) -> Mesh:
+    """Delaunay triangulation of boundary + interior, clipped to the
+    polygon."""
+    points = np.concatenate([boundary, interior], axis=0)
+    tri = Delaunay(points)
+    cent = points[tri.simplices].mean(axis=1)
+    triangles = tri.simplices[points_in_polygon(boundary, cent)].astype(np.int32)
+    return _finalize_mesh(points, triangles, len(boundary), bnd_tags)
+
+
 def blob_mesh(radius: float = 1.0, hsize: float = 0.08,
               nb_bound_points: int = 10, seed: Optional[int] = None,
               rng: Optional[np.random.Generator] = None,
@@ -169,9 +186,36 @@ def blob_mesh(radius: float = 1.0, hsize: float = 0.08,
     boundary = _sample_boundary(spline, nb_bound_points, hsize)
     interior = _interior_points(boundary, hsize, rng)
     interior = _laplacian_smooth(boundary, interior)
-    points = np.concatenate([boundary, interior], axis=0)
-    tri = Delaunay(points)
-    cent = points[tri.simplices].mean(axis=1)
-    triangles = tri.simplices[points_in_polygon(boundary, cent)].astype(np.int32)
-    bnd_tags = np.full(len(boundary), tag_dirichlet, np.int32)
-    return _finalize_mesh(points, triangles, len(boundary), bnd_tags)
+    return _triangulate(boundary, interior,
+                        np.full(len(boundary), tag_dirichlet, np.int32))
+
+
+def mixed_blob_mesh(radius: float = 1.0, hsize: float = 0.08,
+                    nb_bound_points: int = 10, seed: Optional[int] = None,
+                    rng: Optional[np.random.Generator] = None,
+                    tag_dirichlet: int = 101, tag_neumann: int = 303) -> Mesh:
+    """Mixed-BC blob mesh: the boundary splits into 4 arcs by control-point
+    quarters, two opposite arcs Dirichlet and the other two Neumann, which
+    pair drawn from ``rng``.  A vertex touching a Dirichlet facet is
+    Dirichlet, so interface vertices go to Dirichlet.  ``boundary_loop``
+    stays CCW: the outward normals depend on it."""
+    if rng is None:
+        rng = np.random.default_rng(seed)
+    spline = _boundary_spline(radius, nb_bound_points, rng)
+    boundary, params = _sample_boundary(spline, nb_bound_points, hsize,
+                                        return_params=True)
+    # facet i joins samples i and i+1; its quarter is its midpoint's
+    t_max = float(nb_bound_points - 1)
+    p1 = np.roll(params, -1)
+    p1 = np.where(p1 < params, p1 + t_max, p1)
+    mid = ((params + p1) / 2.0) % t_max
+    quarter = np.minimum(mid / t_max * 4.0, 3.999).astype(int)
+    sense = int(rng.integers(0, 2))
+    facet_is_d = np.isin(quarter, [0, 2] if sense == 1 else [1, 3])
+    # vertex i touches facets i-1 and i
+    vert_is_d = facet_is_d | np.roll(facet_is_d, 1)
+    bnd_tags = np.where(vert_is_d, tag_dirichlet, tag_neumann).astype(np.int32)
+
+    interior = _interior_points(boundary, hsize, rng)
+    interior = _laplacian_smooth(boundary, interior)
+    return _triangulate(boundary, interior, bnd_tags)

@@ -1,13 +1,15 @@
 """Datasets and FEM samples → Ψ-GNN graph samples and batches.
 
-Port of ``psignn_tpu/data/reader.py`` for the Ψ-GNN family, Dirichlet
-variant: ``REF_STATS``, ``psignn_sample_from_fem``, ``load_dataset`` of a
-reference-format ``.npy`` directory, the sequential 60/20/20
-``split_dataset`` and a ``GraphLoader`` of concatenated ``Graph`` batches.
-The port needs no padding caps (PyTorch runs eagerly), and the loader keeps
-the JAX loader's shuffle, ``np.random.RandomState(seed + epoch)``, so both
-packages see the same batches.  The DSS sample form and the mixed variant
-are not ported yet.
+Port of ``psignn_tpu/data/reader.py`` for the Ψ-GNN family, Dirichlet and
+mixed variants: ``REF_STATS``, ``psignn_sample_from_fem``, ``load_dataset``
+of a reference-format ``.npy`` directory, the 60/20/20 ``split_dataset``
+and a ``GraphLoader`` of concatenated ``Graph`` batches.  The mixed
+variant adds the normalised ``unit_normal_vector`` and 3-column one-hot
+``tags``, and its split is shuffled by ``np.random.RandomState(seed)`` as
+the JAX package's is.  The port needs no padding caps (PyTorch runs
+eagerly), and the loader keeps the JAX loader's shuffle,
+``np.random.RandomState(seed + epoch)``, so both packages see the same
+batches.  The DSS sample form and the DS-GPS family are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,10 +49,13 @@ GraphSample = Dict[str, np.ndarray]
 
 
 def _psignn_sample(A, b, sol, prb_data, tags, coordinates, distance,
-                   stats: Dict[str, np.ndarray], dtype) -> GraphSample:
+                   stats: Dict[str, np.ndarray], dtype,
+                   normals=None) -> GraphSample:
     """COO edges over the nonzeros of A (``A[senders, receivers] = a_ij``),
     normalised problem data and edge distances, and the initial condition
-    x = 0 inside, x = b on Dirichlet nodes (reader.py:107-116)."""
+    x = 0 inside, x = b on Dirichlet nodes (reader.py:107-116); with
+    ``normals``, the normalised ``unit_normal_vector`` of the mixed
+    variant."""
     c = sp.find(A)
     b = np.asarray(b, dtype).reshape(-1, 1)
     sol = np.asarray(sol, dtype).reshape(-1, 1)
@@ -58,7 +63,7 @@ def _psignn_sample(A, b, sol, prb_data, tags, coordinates, distance,
     x = np.zeros_like(sol)
     bnd = tags[:, 0] == 1 if tags.shape[1] == 1 else tags[:, 1] == 1
     x[bnd] = b[bnd]
-    return dict(
+    out = dict(
         x=x, b=b, sol=sol,
         prb_data=((np.asarray(prb_data) - stats["prb_mean"])
                   / stats["prb_std"]).astype(dtype),
@@ -67,6 +72,11 @@ def _psignn_sample(A, b, sol, prb_data, tags, coordinates, distance,
         a_ij=c[2].reshape(-1, 1).astype(dtype),
         edge_attr=((np.asarray(distance) - stats["dist_mean"])
                    / stats["dist_std"]).astype(dtype))
+    if normals is not None:
+        out["unit_normal_vector"] = (
+            (np.asarray(normals) - stats["normal_mean"])
+            / stats["normal_std"]).astype(dtype)
+    return out
 
 
 def _reference_stats(variant: str = "dirichlet") -> Dict[str, np.ndarray]:
@@ -76,11 +86,15 @@ def _reference_stats(variant: str = "dirichlet") -> Dict[str, np.ndarray]:
 def psignn_sample_from_fem(s: Dict[str, np.ndarray],
                            variant: str = "dirichlet",
                            dtype=np.float32) -> GraphSample:
-    """One ``data.fem.solve_poisson`` output → a Ψ-GNN graph sample,
-    normalised with the reference statistics."""
+    """One ``data.fem.solve_poisson`` (or, with ``variant='mixed'``,
+    ``solve_poisson_mixed``) output → a Ψ-GNN graph sample, normalised
+    with the reference statistics.  The mixed sample also carries the
+    normals, which the JAX package's on-the-fly form leaves out."""
     return _psignn_sample(s["A"], s["b"], s["sol"], s["prb_data"], s["tags"],
                           s["coordinates"], s["distance"],
-                          _reference_stats(variant), dtype)
+                          _reference_stats(variant), dtype,
+                          s["unit_normal_vector"] if variant == "mixed"
+                          else None)
 
 
 def _load(path_data: str, name: str) -> np.ndarray:
@@ -93,44 +107,59 @@ def load_dataset(path_data: str, family: str = "psignn",
     """Every sample of a reference-format data directory as a graph sample.
 
     ``stats='reference'`` normalises with ``REF_STATS``; ``'auto'`` with
-    the mean and std of the loaded data (edge offsets stay centred)."""
-    if family != "psignn" or variant != "dirichlet":
-        raise NotImplementedError(
-            f"loading family '{family}', variant '{variant}' is not yet "
-            f"ported")
+    the mean and std of the loaded data (edge offsets stay centred).  The
+    mixed variant also reads ``unit_normal_vector.npy``."""
+    _check(family, variant)
     if stats not in ("reference", "auto"):
         raise ValueError(f"stats must be 'reference' or 'auto', not {stats!r}")
-    arrays = {k: _load(path_data, k) for k in (
-        "A_sparse_matrix", "b_matrix", "sol", "prb_data", "tags",
-        "coordinates", "distance")}
+    keys = ["A_sparse_matrix", "b_matrix", "sol", "prb_data", "tags",
+            "coordinates", "distance"]
+    if variant == "mixed":
+        keys.append("unit_normal_vector")
+    arrays = {k: _load(path_data, k) for k in keys}
     if stats == "reference":
         st = _reference_stats(variant)
     else:
-        prb = np.vstack(arrays["prb_data"])
-        dist = np.vstack(arrays["distance"])
-        st = dict(prb_mean=prb.mean(axis=0), prb_std=prb.std(axis=0),
-                  dist_mean=dist.mean(axis=0), dist_std=dist.std(axis=0))
+        st = {}
+        for key, name in (("prb_data", "prb"), ("distance", "dist"),
+                          ("unit_normal_vector", "normal")):
+            if key in arrays:
+                stacked = np.vstack(arrays[key])
+                st[name + "_mean"] = stacked.mean(axis=0)
+                st[name + "_std"] = stacked.std(axis=0)
         st["dist_mean"][0] = st["dist_mean"][1] = 0.0
-    return [_psignn_sample(*(arrays[k][i] for k in arrays), stats=st,
-                           dtype=dtype)
+    return [_psignn_sample(*(arrays[k][i] for k in keys[:7]), stats=st,
+                           dtype=dtype,
+                           normals=(arrays["unit_normal_vector"][i]
+                                    if variant == "mixed" else None))
             for i in range(len(arrays["A_sparse_matrix"]))]
 
 
+def _check(family: str, variant: str) -> None:
+    if family != "psignn":
+        raise NotImplementedError(f"family '{family}' is not yet ported")
+    if variant not in ("dirichlet", "mixed"):
+        raise ValueError(f"variant must be 'dirichlet' or 'mixed', "
+                         f"not {variant!r}")
+
+
 def split_dataset(samples: Sequence, family: str = "psignn",
-                  variant: str = "dirichlet"):
-    """(train, val, test): the reference's sequential 60/20/20 split,
-    ordered [0:.6 | .6:.8 | .8:1] (reader.py:120-121)."""
-    if family != "psignn" or variant != "dirichlet":
-        raise NotImplementedError(
-            f"splitting family '{family}', variant '{variant}' is not yet "
-            f"ported")
+                  variant: str = "dirichlet", seed: int = 1234):
+    """(train, val, test), 60/20/20: ordered [0:.6 | .6:.8 | .8:1] in the
+    Dirichlet variant (reader.py:120-121), shuffled first by
+    ``np.random.RandomState(seed)`` in the mixed one (mixed reader.py:128-129
+    splits with ``shuffle=True``)."""
+    _check(family, variant)
     n = len(samples)
+    idx = np.arange(n)
+    if variant == "mixed":
+        np.random.RandomState(seed).shuffle(idx)
     n_test = int(n * 0.2)
     n_val = int((n - n_test) * 0.25)
     n_train = n - n_test - n_val
-    samples = list(samples)
-    return (samples[:n_train], samples[n_train:n_train + n_val],
-            samples[n_train + n_val:])
+    picked = [samples[i] for i in idx]
+    return (picked[:n_train], picked[n_train:n_train + n_val],
+            picked[n_train + n_val:])
 
 
 @dataclasses.dataclass

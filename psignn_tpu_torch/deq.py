@@ -36,17 +36,24 @@ class DEQConfig(NamedTuple):
     fw_thres: int = 300
     bw_tol: float = 1e-8
     bw_thres: int = 300
+    ls: bool = False           # Broyden's Armijo line search (solver.py:156)
+
+
+def _solver_kwargs(cfg: DEQConfig) -> dict:
+    """Options that only the configured solver takes: ``ls`` goes to
+    Broyden alone, as in the JAX package (``deq.py:59-67``)."""
+    return {"ls": True} if cfg.solver == "broyden" and cfg.ls else {}
 
 
 class SolveStats(NamedTuple):
     """What the iteration logs read from one fixed-point solve."""
     lowest: float   # best stop-mode residual
     nstep: int      # step of the best iterate
-    calls: int      # evaluations of the solved function (iterations + 1)
+    calls: int      # evaluations of the solved function
 
 
 def solve_stats(out: SolverResult) -> SolveStats:
-    return SolveStats(out.lowest, out.nstep, out.trace_len)
+    return SolveStats(out.lowest, out.nstep, out.calls)
 
 
 class AdjointSolve:
@@ -62,7 +69,8 @@ def fixed_point_forward(f: Callable, h_init: torch.Tensor, graph,
     with torch.no_grad():
         h0 = h_init.detach()
         return solver(lambda h: f(h, h0, graph), h0, threshold=cfg.fw_thres,
-                      eps=cfg.fw_tol, keep_trace=keep_trace)
+                      eps=cfg.fw_tol, keep_trace=keep_trace,
+                      **_solver_kwargs(cfg))
 
 
 def deq_attach(f: Callable, cfg: DEQConfig, h_star: torch.Tensor,
@@ -88,7 +96,7 @@ def deq_attach(f: Callable, cfg: DEQConfig, h_star: torch.Tensor,
             return torch.autograd.grad(new_h, h, y, retain_graph=True)[0] + g
 
         out = solver(step, torch.zeros_like(g), threshold=cfg.bw_thres,
-                     eps=cfg.bw_tol)
+                     eps=cfg.bw_tol, **_solver_kwargs(cfg))
         adjoint.stats = solve_stats(out)
         return out.result
 

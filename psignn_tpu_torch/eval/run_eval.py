@@ -1,25 +1,37 @@
-"""Checkpoint evaluation CLI: the growing-geometry sweep of a Ψ-GNN
-checkpoint on the GPU.
+"""Checkpoint evaluation CLI: the test-split table and the growing-geometry
+sweep of a Ψ-GNN checkpoint on the GPU.
 
-Port of ``psignn_tpu/eval/run_eval.py`` (``load_predictor`` and
-``--sweep``).  The test-split table is not ported yet.
+Port of ``psignn_tpu/eval/run_eval.py`` (``load_predictor``, the test-split
+table and ``--sweep``)::
 
     python -m psignn_tpu_torch.eval.run_eval \\
+        --ckpt results/psignn_mixed/ckpt/best_model.ckpt --variant mixed \\
+        --path_dataset data/mixed --out results/eval/
+    python -m psignn_tpu_torch.eval.run_eval \\
         --ckpt results/psignn_dirichlet/ckpt/best_model.ckpt --sweep
+
+``--path_dataset`` asks for the table: the dataset is loaded, split as the
+trainer splits it at its default seed (``split_dataset``), and its test
+part is answered in batches of ``--batch_size``; the table is printed
+and, with ``--out``, written to ``test_metrics.json``.  The JAX CLI reads ``data/`` unless told otherwise;
+here the table runs only when a dataset is named.  ``--sweep`` builds
+Dirichlet samples (2-column problem data, no normals), so it takes a
+Dirichlet checkpoint only.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from .. import resolve_device
 
 
 def load_predictor(ckpt_path: str, device=None, overrides=None):
-    """(predict_fn, family, cfg, model) from a Ψ-GNN checkpoint, the JAX
-    package's or one the port trained; ``predict_fn(graph)`` returns
-    ``psignn_inference``'s tuple."""
+    """(predict_fn, family, cfg, model) from a Ψ-GNN checkpoint, Dirichlet
+    or mixed by its ``bc_mode``, the JAX package's or one the port trained;
+    ``predict_fn(graph)`` returns ``psignn_inference``'s tuple."""
     from ..models import psignn_inference
     from ..weights import load_psignn_checkpoint
 
@@ -35,27 +47,54 @@ def load_predictor(ckpt_path: str, device=None, overrides=None):
 def main(argv=None):
     p = argparse.ArgumentParser(description="psignn_tpu_torch checkpoint eval")
     p.add_argument("--ckpt", type=str, required=True)
+    p.add_argument("--path_dataset", type=str, default=None,
+                   help="dataset whose test split is tabled")
+    p.add_argument("--variant", type=str, default="dirichlet",
+                   choices=["dirichlet", "mixed"])
+    p.add_argument("--batch_size", type=int, default=50)
     p.add_argument("--out", type=str, default="")
     p.add_argument("--sweep", action="store_true",
-                   help="run the growing-geometry radius sweep (required: "
-                        "the test-split table is not yet ported)")
+                   help="run the growing-geometry radius sweep (Dirichlet "
+                        "checkpoints)")
     p.add_argument("--radii", type=float, nargs="+",
                    default=[0.6, 1.0, 2.0, 4.0, 5.0])
     p.add_argument("--n_meshes", type=int, default=3)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
-    if not args.sweep:
-        p.error("only --sweep is ported; the test-split table is not yet "
-                "ported")
+    if args.path_dataset is None and not args.sweep:
+        p.error("give --path_dataset for the test-split table, --sweep, or "
+                "both")
 
-    from .sweep import growing_geometry_sweep
+    predict, family, cfg, _ = load_predictor(args.ckpt, args.device)
+    if args.path_dataset is not None and cfg.bc_mode != args.variant:
+        p.error(f"the checkpoint is a {cfg.bc_mode} model; its test split "
+                f"needs --variant {cfg.bc_mode}")
+    if args.sweep and cfg.bc_mode != "dirichlet":
+        p.error(f"--sweep builds Dirichlet samples (2-column problem data, "
+                f"no normals); a {cfg.bc_mode} checkpoint cannot answer it")
 
-    predict, family, _, _ = load_predictor(args.ckpt, args.device)
-    summary = growing_geometry_sweep(
-        {family: predict}, radii=args.radii, n_meshes=args.n_meshes,
-        out_dir=args.out or None, device=args.device)
-    print(json.dumps(summary, indent=2, default=float))
+    if args.path_dataset is not None:
+        from ..data.reader import GraphLoader, load_dataset, split_dataset
+        from .metrics import evaluate_dataset
+        _, _, test = split_dataset(
+            load_dataset(args.path_dataset, variant=args.variant),
+            variant=args.variant)
+        loader = GraphLoader(test, batch_size=args.batch_size,
+                             device=args.device)
+        results = evaluate_dataset(lambda g: predict(g)[0], loader,
+                                   name=family)
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "test_metrics.json"), "w") as f:
+                json.dump(results, f, indent=2)
+
+    if args.sweep:
+        from .sweep import growing_geometry_sweep
+        summary = growing_geometry_sweep(
+            {family: predict}, radii=args.radii, n_meshes=args.n_meshes,
+            out_dir=args.out or None, device=args.device)
+        print(json.dumps(summary, indent=2, default=float))
 
 
 if __name__ == "__main__":

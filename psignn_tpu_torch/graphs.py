@@ -4,7 +4,11 @@ Port of ``PaddedGraph`` / ``batch_graphs`` (``psignn_tpu/graphs.py``).  The
 JAX package pads every batch to bucketed capacities because XLA needs
 static shapes; PyTorch runs eagerly, so a batch here is the plain
 concatenation of its samples and every row is real.  The masks the model
-reads (``fnode_mask``, ``dirichlet_mask``) are built once per batch.
+reads (``fnode_mask``, ``dirichlet_mask``, and ``neumann_mask`` in the
+mixed variant) are built once per batch.  The widths of ``tags`` and
+``prb_data`` come from the samples: 1 and 2 in the Dirichlet variant, a
+3-column one-hot [interior, dirichlet, neumann] and 3 in the mixed one,
+which also carries ``unit_normal_vector``.
 
 Conventions as in the JAX package: ``senders[e], receivers[e]`` are the
 COO row/col of the e-th nonzero of A, so ``A[senders, receivers] = a_ij``.
@@ -14,7 +18,7 @@ Message passing drops self-loops; the SpMV residual keeps the diagonal.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,8 +34,8 @@ class Graph:
     x: torch.Tensor               # (N, 1) initial condition (0 inside, b on Dirichlet)
     b: torch.Tensor               # (N, 1) right-hand side of A u = b
     sol: torch.Tensor             # (N, 1) FEM solution (reporting only)
-    prb_data: torch.Tensor        # (N, 2) normalised problem data [f, g]
-    tags: torch.Tensor            # (N, 1) 1 on Dirichlet nodes
+    prb_data: torch.Tensor        # (N, 2|3) normalised [f, g(, f_neumann)]
+    tags: torch.Tensor            # (N, 1) 1 on Dirichlet nodes, or (N, 3) one-hot
     pos: torch.Tensor             # (N, 2) vertex coordinates
     fnode_mask: torch.Tensor      # (N, 1) float, 1 on real nodes (all, unpadded)
     dirichlet_mask: torch.Tensor  # (N, 1) float, 1 on Dirichlet nodes
@@ -48,6 +52,9 @@ class Graph:
     mp_to: MPCsr                  # aggregation at receivers
     mp_from: MPCsr                # aggregation at senders (mp_to.reverse())
     num_graphs: int = 1
+    # --- mixed variant only ---
+    neumann_mask: Optional[torch.Tensor] = None        # (N, 1) float
+    unit_normal_vector: Optional[torch.Tensor] = None  # (N, 2) normalised
 
     @property
     def total_nodes(self) -> int:
@@ -83,20 +90,34 @@ def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
     receivers = np.concatenate([np.asarray(s["receivers"], np.int64) + o
                                 for s, o in zip(samples, node_off)])
     total = int(n_nodes.sum())
-    tags = cat("tags", 1)
+
+    def width(key):
+        a = np.asarray(samples[0][key])
+        return a.reshape(a.shape[0], -1).shape[1]
+
+    tags = cat("tags", width("tags"))
     edge_attr = cat("edge_attr", 3)
+    # Dirichlet variant: tags == 1; mixed: one-hot column 1 (column 0 is
+    # the interior flag there)
+    dcol = 0 if tags.shape[1] == 1 else 1
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    mixed = {}
+    if tags.shape[1] == 3:
+        mixed["neumann_mask"] = t((tags[:, 2:3] == 1).astype(dtype))
+    if all("unit_normal_vector" in s for s in samples):
+        mixed["unit_normal_vector"] = t(cat("unit_normal_vector", 2))
     mp_to = pack_csr(senders, receivers, edge_attr, total, "to", device=device)
     return Graph(
         x=t(cat("x", 1)), b=t(cat("b", 1)), sol=t(cat("sol", 1)),
-        prb_data=t(cat("prb_data", 2)), tags=t(tags), pos=t(cat("pos", 2)),
-        fnode_mask=t(np.ones((total, 1), dtype)),
-        dirichlet_mask=t((tags[:, :1] == 1).astype(dtype)),
+        prb_data=t(cat("prb_data", width("prb_data"))), tags=t(tags),
+        pos=t(cat("pos", 2)), fnode_mask=t(np.ones((total, 1), dtype)),
+        dirichlet_mask=t((tags[:, dcol:dcol + 1] == 1).astype(dtype)),
         graph_id=t(np.repeat(np.arange(len(samples)), n_nodes)),
         senders=t(senders), receivers=t(receivers),
         a_ij=t(cat("a_ij", 1)), edge_attr=t(edge_attr),
         n_nodes=t(n_nodes), n_edges=t(n_edges),
-        mp_to=mp_to, mp_from=mp_to.reverse(), num_graphs=len(samples))
+        mp_to=mp_to, mp_from=mp_to.reverse(), num_graphs=len(samples),
+        **mixed)

@@ -1,21 +1,25 @@
-"""Ψ-GNN: deep-equilibrium GNN Poisson solver (Dirichlet variant).
+"""Ψ-GNN: deep-equilibrium GNN Poisson solver, Dirichlet and mixed
+Dirichlet+Neumann variants.
 
 Port of ``psignn_tpu/models/psignn.py`` (``PsignnConfig``, ``psignn_init``,
-``encoder_apply``/``decoder_apply``, the Dirichlet branch of
-``make_function``, ``psignn_inference``):
+``encoder_apply``/``decoder_apply``, ``make_function``,
+``psignn_inference``, ``psignn_forward``):
 
 * a 1 ↔ latent autoencoder (encoder MLP [1, D, D], decoder MLP [D, D, 1]);
 * the update function f_θ: two directional message passings, a sigmoid
   gate on a gated MLP update ``h + α·update``, LayerNorm on the last layer,
   the hard Dirichlet reset ``where(dir_mask > 0, h_initial, h_next)`` and
-  ``h * fnode_mask``;
-* inference: encode, Broyden fixed point of f_θ, decode;
+  ``h * fnode_mask``.  The mixed variant (``bc_mode="mixed"``, prb_dim 3)
+  adds a third message passing, ``phi_neumann`` in the ``from`` direction
+  on the same h, and the ``update_neumann`` MLP of [h, mp_neu, prb_data,
+  normal], which overwrites the Neumann rows before the LayerNorm and the
+  Dirichlet reset;
+* inference: encode, the fixed point of f_θ by the configured solver,
+  decode;
 * ``psignn_forward``: the training forward with the JAX package's loss
   dictionary (residual, Jacobian, encoder, autoencoder round-trip, and the
   report-only MSEs and solver stats), the DEQ attached with its implicit
   backward.
-
-The mixed variant comes in a later slice.
 """
 
 from __future__ import annotations
@@ -45,19 +49,20 @@ class PsignnConfig:
     bw_thres: int = 300
     jac_vecs: int = 1                   # Hutchinson probes (model.py:207)
     edge_dim: int = 3
-    # options of the JAX package that are not ported; accepted so that a
-    # JAX checkpoint's hyperparameters load, refused unless at the default
+    # TPU-era Broyden rank-buffer options of the JAX package, not ported;
+    # accepted so that a JAX checkpoint's hyperparameters load, refused
+    # unless at the default
     lowrank_bf16: bool = False
     lowrank_max_rank: int = 0
-    ls: bool = False
+    ls: bool = False                    # Broyden Armijo line search
 
     def __post_init__(self):
-        if self.bc_mode != "dirichlet":
+        if self.bc_mode not in ("dirichlet", "mixed"):
+            raise ValueError(f"bc_mode must be 'dirichlet' or 'mixed', not "
+                             f"{self.bc_mode!r}")
+        if self.lowrank_bf16 or self.lowrank_max_rank:
             raise NotImplementedError(
-                f"bc_mode '{self.bc_mode}' is not yet ported")
-        if self.lowrank_bf16 or self.lowrank_max_rank or self.ls:
-            raise NotImplementedError(
-                "lowrank_bf16, lowrank_max_rank and ls are not yet ported")
+                "lowrank_bf16 and lowrank_max_rank are not yet ported")
 
     @classmethod
     def from_hyperparameters(cls, hp: Dict[str, Any],
@@ -68,13 +73,14 @@ class PsignnConfig:
 
     @property
     def prb_dim(self) -> int:
-        return 2
+        # [f, g] Dirichlet (model.py:50), [f, g, f_neumann] mixed
+        return 2 if self.bc_mode == "dirichlet" else 3
 
     @property
     def deq(self) -> DEQConfig:
         return DEQConfig(solver=self.solver, fw_tol=self.fw_tol,
                          fw_thres=self.fw_thres, bw_tol=self.bw_tol,
-                         bw_thres=self.bw_thres)
+                         bw_thres=self.bw_thres, ls=self.ls)
 
 
 class PsignnLayer(nn.Module):
@@ -87,18 +93,29 @@ class PsignnLayer(nn.Module):
 
 
 class UpdateFunction(nn.Module):
-    """f_θ(h, h_initial, graph) -> h' (the Dirichlet ``make_function``)."""
+    """f_θ(h, h_initial, graph) -> h' (``make_function``).  In the mixed
+    variant ``phi_neumann`` and ``update_neumann`` are shared by every
+    layer, as in the JAX parameter tree."""
 
     def __init__(self, cfg: PsignnConfig, generator=None, device=None):
         super().__init__()
-        D, P = cfg.latent_dim, cfg.prb_dim
+        D, E, P = cfg.latent_dim, cfg.edge_dim, cfg.prb_dim
         self.layers = nn.ModuleList(PsignnLayer(cfg, generator, device)
                                     for _ in range(cfg.n_layers))
         self.alpha = linear(3 * D + P, 1, generator, device)
         self.laynorm = layer_norm(D, device)
+        self.mixed = cfg.bc_mode == "mixed"
+        if self.mixed:
+            self.phi_neumann = MLP([2 * D + E, D, D], generator, device)
+            self.update_neumann = MLP([2 * D + P + 2, D, D], generator,
+                                      device)
 
     def forward(self, h: torch.Tensor, h_initial: torch.Tensor,
                 graph: Graph) -> torch.Tensor:
+        if self.mixed and (graph.neumann_mask is None
+                           or graph.unit_normal_vector is None):
+            raise ValueError("the mixed Ψ-GNN needs a mixed graph: 3-column "
+                             "one-hot tags and unit_normal_vector")
         last = len(self.layers) - 1
         for k, layer in enumerate(self.layers):
             mp_to = message_passing(layer.phi_to, h, graph, "to")
@@ -106,6 +123,13 @@ class UpdateFunction(nn.Module):
             concat = torch.cat([h, mp_to, mp_from, graph.prb_data], dim=-1)
             alpha = torch.sigmoid(self.alpha(concat))
             h_next = h + alpha * layer.update(concat)
+            if self.mixed:
+                # the Neumann branch on the same h overwrites Neumann rows
+                mp_neu = message_passing(self.phi_neumann, h, graph, "from")
+                upd_neu = self.update_neumann(torch.cat(
+                    [h, mp_neu, graph.prb_data, graph.unit_normal_vector],
+                    dim=-1))
+                h_next = torch.where(graph.neumann_mask > 0, upd_neu, h_next)
             if k == last:
                 h_next = self.laynorm(h_next)
             # hard Dirichlet reset, then keep non-node rows at zero
@@ -129,7 +153,7 @@ class Psignn(nn.Module):
 
 class PsignnInference(NamedTuple):
     u: torch.Tensor      # (N, 1) decoded solution
-    nstep: int           # Broyden step of the best iterate
+    nstep: int           # solver step of the best (Picard: last) iterate
     lowest: float        # best relative residual of the fixed point
     prot_break: bool     # divergence protection fired
 

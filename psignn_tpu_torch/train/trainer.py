@@ -1,7 +1,8 @@
 """Experiment runner: train and validation epochs, CSV logs, checkpoints.
 
-Port of ``psignn_tpu/train/trainer.py`` for the Ψ-GNN family on one device
-with one concatenated batch per step:
+Port of ``psignn_tpu/train/trainer.py`` for the Ψ-GNN family, Dirichlet
+or mixed (the model config's ``bc_mode``, with loaders of that variant), on
+one device with one concatenated batch per step:
 
 * two Adams (update function, autoencoder) with their plateau schedulers
   (training_class.py:52-58), loss = residual + jac_weight·jacobian +

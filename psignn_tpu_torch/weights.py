@@ -21,9 +21,15 @@ from . import resolve_device
 from .models.psignn import Psignn, PsignnConfig
 
 
+# the mixed variant's extra MLPs of the update function (psignn_init:83-85)
+NEUMANN = ("phi_neumann", "update_neumann")
+
+
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """A Ψ-GNN (Dirichlet) JAX parameter tree (``psignn_init`` layout, leaves
-    anything ``np.asarray`` takes) as a ``Psignn`` state dict on the CPU."""
+    """A Ψ-GNN JAX parameter tree, Dirichlet or mixed (``psignn_init``
+    layout, leaves anything ``np.asarray`` takes) as a ``Psignn`` state
+    dict on the CPU.  Parameters of a variant not yet ported are refused,
+    not dropped."""
     sd: Dict[str, torch.Tensor] = {}
 
     def tensor(a):
@@ -38,13 +44,16 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             lin(f"{prefix}.layers.{i}", p)
 
     fn = tree["function"]
-    extra = set(fn) - {"layers", "alpha", "laynorm"}
+    extra = set(fn) - {"layers", "alpha", "laynorm", *NEUMANN}
     if extra:
         raise NotImplementedError(
             f"parameters {sorted(extra)} belong to a variant not yet ported")
     for k, layer in enumerate(fn["layers"]):
         for name in ("phi_to", "phi_from", "update"):
             mlp(f"function.layers.{k}.{name}", layer[name])
+    for name in NEUMANN:
+        if name in fn:
+            mlp(f"function.{name}", fn[name])
     lin("function.alpha", fn["alpha"])
     sd["function.laynorm.weight"] = tensor(fn["laynorm"]["scale"])
     sd["function.laynorm.bias"] = tensor(fn["laynorm"]["bias"])
@@ -74,13 +83,17 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         k = len(layers)
         layers.append({name: mlp(f"function.layers.{k}.{name}")
                        for name in ("phi_to", "phi_from", "update")})
+    function = {
+        "layers": layers,
+        "alpha": lin("function.alpha"),
+        "laynorm": {"scale": sd["function.laynorm.weight"],
+                    "bias": sd["function.laynorm.bias"]},
+    }
+    for name in NEUMANN:
+        if f"function.{name}.layers.0.weight" in sd:
+            function[name] = mlp(f"function.{name}")
     return {
-        "function": {
-            "layers": layers,
-            "alpha": lin("function.alpha"),
-            "laynorm": {"scale": sd["function.laynorm.weight"],
-                        "bias": sd["function.laynorm.bias"]},
-        },
+        "function": function,
         "autoencoder": {"encoder": mlp("encoder"), "decoder": mlp("decoder")},
     }
 

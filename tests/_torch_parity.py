@@ -7,6 +7,7 @@ JAX stays on the CPU (tests/conftest.py), torch runs with device="cpu".
 import numpy as np
 
 CKPT = "results/psignn_dirichlet/ckpt/best_model.ckpt"
+MIXED_CKPT = "results/psignn_mixed/ckpt/best_model.ckpt"
 
 
 def fem_sample(seed: int, radius: float = 1.0, hsize: float = 0.2):
@@ -17,6 +18,18 @@ def fem_sample(seed: int, radius: float = 1.0, hsize: float = 0.2):
     rng = np.random.default_rng(seed)
     mesh = blob_mesh(radius=radius, hsize=hsize, rng=rng)
     return psignn_sample_from_fem(solve_poisson(mesh, radius, rng))
+
+
+def mixed_sample(seed: int, radius: float = 1.0, hsize: float = 0.2):
+    """One mixed Ψ-GNN graph sample (normals included) from the port's own
+    data path."""
+    from psignn_tpu_torch.data.fem import solve_poisson_mixed
+    from psignn_tpu_torch.data.meshgen import mixed_blob_mesh
+    from psignn_tpu_torch.data.reader import psignn_sample_from_fem
+    rng = np.random.default_rng(seed)
+    mesh = mixed_blob_mesh(radius=radius, hsize=hsize, rng=rng)
+    return psignn_sample_from_fem(solve_poisson_mixed(mesh, radius, rng),
+                                  variant="mixed")
 
 
 def jax_mlp_params(rng: np.random.Generator, channels):
@@ -30,10 +43,10 @@ def jax_mlp_params(rng: np.random.Generator, channels):
     return out
 
 
-def load_trained():
-    """(numpy parameter tree, hyperparameters) of the trained Ψ-GNN."""
+def load_trained(path: str = CKPT):
+    """(numpy parameter tree, hyperparameters) of a trained Ψ-GNN."""
     from psignn_tpu_torch.weights import load_jax_checkpoint
-    ck = load_jax_checkpoint(CKPT)
+    ck = load_jax_checkpoint(path)
     return ck["params"], dict(ck["hyperparameters"])
 
 

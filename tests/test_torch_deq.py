@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from psignn_tpu import deq as jdeq
+from psignn_tpu_torch import deq as tdeq
 from psignn_tpu_torch.deq import (DEQConfig, deq_attach, deq_solve,
                                   fixed_point_forward, jac_loss_estimate,
                                   jac_loss_probe, power_method)
@@ -216,6 +217,83 @@ def test_deq_attach_under_no_grad_attaches_nothing():
 
 def test_unported_solver_refused():
     W, b, h0 = _numbers(seed=7)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fixed_point_forward(Toy(W, b), torch.from_numpy(h0), None,
-                            DEQConfig(solver="anderson"))
+    for name in ("newton", "newton_krylov"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            fixed_point_forward(Toy(W, b), torch.from_numpy(h0), None,
+                                DEQConfig(solver=name))
+
+
+@pytest.mark.parametrize("solver,ls", [("anderson", False),
+                                       ("forward_iteration", False),
+                                       ("picard", False), ("broyden", True)])
+def test_implicit_gradient_by_each_solver(solver, ls):
+    """The forward and the adjoint solve by each solver give the unrolled
+    gradient (1e-3, as ``test_implicit_gradient_matches_unrolled``), and
+    the JAX package's ``deq_attach`` with the same solver on the same h*
+    (1e-4)."""
+    W, b, h0 = _numbers(seed=8)
+    kw = dict(fw_tol=1e-7, fw_thres=400, bw_tol=1e-7, bw_thres=400)
+    cfg = DEQConfig(solver=solver, ls=ls, **kw)
+    f = Toy(W, b)
+    hi = torch.from_numpy(h0).requires_grad_()
+    loss, adjoint = _implicit_loss(f, cfg, hi)
+    gi = torch.autograd.grad(loss, [f.W, f.b, hi])
+    assert adjoint.stats.lowest < 1e-6 and adjoint.stats.calls > 1
+
+    hu = torch.from_numpy(h0).requires_grad_()
+    h = hu
+    for _ in range(300):
+        h = f(h, hu, None)
+    lu = torch.sum(h ** 2) + 2.0 * torch.sum(h * hu)
+    gu = torch.autograd.grad(lu, [f.W, f.b, hu])
+    for a, c, name in zip(gi, gu, ("W", "b", "h_init")):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=1e-3,
+                                   atol=1e-5, err_msg=name)
+
+    jcfg = jdeq.DEQConfig(solver=solver, ls=ls, **kw)
+    jp = {"W": jnp.asarray(W), "b": jnp.asarray(b)}
+
+    def jf(p, h, h_init, graph):
+        return _jax_toy(h, p, h_init)
+
+    h_star = fixed_point_forward(f, torch.from_numpy(h0), None, cfg).result
+
+    def jloss(p, h_init):
+        new_h = jdeq.deq_attach(jf, jcfg, p, jnp.asarray(h_star.numpy()),
+                                h_init, None, jnp.zeros(2))
+        return jnp.sum(new_h ** 2) + 2.0 * jnp.sum(new_h * h_init)
+
+    jg_p, jg_h0 = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(h0))
+    hi = torch.from_numpy(h0).requires_grad_()
+    new_h, _ = deq_attach(f, cfg, h_star, hi, None)
+    got = torch.autograd.grad(torch.sum(new_h ** 2)
+                              + 2.0 * torch.sum(new_h * hi), [f.W, f.b, hi])
+    for a, c, name in zip(got, (jg_p["W"], jg_p["b"], jg_h0),
+                          ("W", "b", "h_init")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=1e-4,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_solver_kwargs_send_ls_to_broyden_only(monkeypatch):
+    """``ls`` reaches Broyden in the forward and the adjoint solve, and no
+    other solver (``psignn_tpu/deq.py:59-67``)."""
+    seen = []
+    get_solver = tdeq.get_solver
+
+    def spy(name):
+        real = get_solver(name)
+
+        def solver(*a, **k):
+            seen.append((name, k.get("ls")))
+            return real(*a, **k)
+        return solver
+
+    monkeypatch.setattr(tdeq, "get_solver", spy)
+    W, b, h0 = _numbers(seed=9)
+    for solver in ("broyden", "anderson"):
+        cfg = DEQConfig(solver=solver, ls=True, fw_tol=1e-6, bw_tol=1e-6)
+        f = Toy(W, b)
+        hi = torch.from_numpy(h0).requires_grad_()
+        loss, _ = _implicit_loss(f, cfg, hi)
+        loss.backward()
+    assert seen == [("broyden", True)] * 2 + [("anderson", None)] * 2

@@ -44,12 +44,6 @@ def test_generate_data_matches_jax(datasets):
         assert f.read() == want
 
 
-def test_generate_data_refuses_mixed(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        generate.generate_data(str(tmp_path), n_mesh=1, n_samples=1,
-                               variant="mixed", verbose=False)
-
-
 @pytest.mark.parametrize("stats", ["reference", "auto"])
 def test_load_dataset_matches_jax(datasets, stats):
     jpath, _ = datasets
@@ -65,9 +59,9 @@ def test_load_dataset_matches_jax(datasets, stats):
 
 def test_load_dataset_refuses_unported(datasets):
     jpath, _ = datasets
-    for kw in (dict(family="dss"), dict(variant="mixed")):
+    for family in ("dss", "dsgps"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
-            reader.load_dataset(jpath, **kw)
+            reader.load_dataset(jpath, family=family)
     with pytest.raises(ValueError):
         reader.load_dataset(jpath, stats="dataset-mean")
 

@@ -176,10 +176,15 @@ def test_run_eval_cli(capsys):
 
 def test_config_refuses_unported_options(trained):
     _, hp, _ = trained
-    for over in (dict(bc_mode="mixed"), dict(ls=True),
-                 dict(lowrank_bf16=True), dict(lowrank_max_rank=64)):
+    for over in (dict(lowrank_bf16=True), dict(lowrank_max_rank=64)):
         with pytest.raises(NotImplementedError):
             PsignnConfig.from_hyperparameters(hp, **over)
+    with pytest.raises(ValueError):
+        PsignnConfig.from_hyperparameters(hp, bc_mode="neumann")
+    # the mixed variant and Broyden's line search are ported
+    mixed = PsignnConfig.from_hyperparameters(hp, bc_mode="mixed", ls=True)
+    assert mixed.prb_dim == 3 and mixed.deq.ls is True
+    assert PsignnConfig.from_hyperparameters(hp).prb_dim == 2
     cfg = PsignnConfig.from_hyperparameters(hp)
     # every hyperparameter of the checkpoint round-trips, training knobs too
     assert dataclasses.asdict(cfg) == hp

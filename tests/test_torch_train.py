@@ -98,7 +98,8 @@ def test_psignn_forward_matches_jax(trained, small, monkeypatch):
                         SolverResult(torch.from_numpy(h_star[:n]),
                                      float(out_fw.lowest),
                                      int(out_fw.nstep), False, None, None,
-                                     None, int(out_fw.nstep) + 1))
+                                     None, int(out_fw.nstep) + 1,
+                                     int(out_fw.nstep) + 1))
     model = psignn_from_jax(params, cfg, "cpu")
     out = psignn_forward(model, tg, cfg, torch.Generator().manual_seed(9))
     total = step.psignn_loss(out.losses, 1.0)
@@ -137,7 +138,7 @@ def test_train_step_kernel_route_matches_plain(trained, small, monkeypatch):
     fm = kernel_route(monkeypatch)
     routed, m_routed = run()
     assert (fm.LAUNCHES, fm.BWD_LAUNCHES) == \
-        chip_smoke.expected_launches(routed)
+        chip_smoke.expected_launches(routed, cfg)
     assert routed.fw == plain.fw
     assert routed.bw.calls == plain.bw.calls
     for k in plain.losses:

@@ -1,8 +1,10 @@
 """Port trainer and training CLI on the CPU: two epochs and a resume with
 their logs and checkpoints, a checkpoint the port trained answering a
-sweep request, the CLI's help, a tiny run, the spike guard and the flags
-of paths not yet ported (``tests/test_trainer.py`` mirrored)."""
+sweep request, the CLI's help, a tiny run, a mixed run and runs with the
+other solvers, the spike guard and the flags of paths not yet ported
+(``tests/test_trainer.py`` mirrored)."""
 
+import json
 import os
 import re
 
@@ -18,6 +20,7 @@ from psignn_tpu_torch.cli.main import main
 from psignn_tpu_torch.data.generate import generate_data
 from psignn_tpu_torch.data.reader import (GraphLoader, load_dataset,
                                           split_dataset)
+from psignn_tpu_torch.eval import run_eval
 from psignn_tpu_torch.eval.run_eval import load_predictor
 from psignn_tpu_torch.eval.sweep import growing_geometry_sweep
 from psignn_tpu_torch.models import PsignnConfig
@@ -194,11 +197,76 @@ def test_cli_spike_guard(tmp_path, data_dir):
     assert "SPIKE GUARD" in log and float(scales[-1]) == 0.25
 
 
+@pytest.fixture(scope="module")
+def mixed_dir(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("mixed"))
+    generate_data(path, n_mesh=2, n_samples=5, hsize=0.25, seed=21,
+                  variant="mixed", verbose=False)
+    return path
+
+
+def test_cli_mixed_run_trains_resumes_and_answers_the_table(
+        tmp_path, mixed_dir, capsys):
+    """``--variant mixed``: a mixed model trains on the shuffled split,
+    writes its checkpoints, resumes, and its best checkpoint answers the
+    test-split table of ``run_eval --variant mixed``."""
+    out = str(tmp_path / "run")
+    argv = ["--variant", "mixed", "--path_dataset", mixed_dir,
+            "--path_results", out, "--batch_size", "3", *FAST_FLAGS]
+    main(argv + ["--max_epochs", "1"])
+    assert "Training finished" in capsys.readouterr().out
+    ck = load_checkpoint(os.path.join(out, "ckpt", "final_model.ckpt"))
+    assert ck["hyperparameters"]["bc_mode"] == "mixed"
+    assert {"phi_neumann", "update_neumann"} <= set(ck["params"]["function"])
+    logs = os.path.join(out, "logs")
+    # header + one line per train step (6 train samples, batches of 3)
+    assert len(_lines(os.path.join(logs, "forward_iteration.csv"))) == 3
+    assert "'bc_mode':'mixed'" in open(os.path.join(
+        logs, "model_config.csv")).read()
+    main(argv + ["--max_epochs", "2", "--resume",
+                 os.path.join(out, "ckpt", "running_model.ckpt")])
+    log = "\n".join(_lines(os.path.join(logs, "train_metrics.csv")))
+    assert "Validation Epoch 1" in log
+    assert all(np.isfinite(v) for v in load_checkpoint(os.path.join(
+        out, "ckpt", "final_model.ckpt"))["hist_val"]["loss"])
+    capsys.readouterr()
+    run_eval.main(["--ckpt", os.path.join(out, "ckpt", "best_model.ckpt"),
+                   "--variant", "mixed", "--path_dataset", mixed_dir,
+                   "--out", str(tmp_path / "eval"), "--device", "cpu"])
+    assert "ResidualNorm" in capsys.readouterr().out
+    table = json.loads((tmp_path / "eval" / "test_metrics.json").read_text())
+    assert all(np.isfinite(v) for v in table.values())
+
+
 @pytest.mark.parametrize("flags", [
-    ["--family", "dss"], ["--family", "dsgps"], ["--variant", "mixed"],
+    ["--solver", "anderson"], ["--solver", "forward_iteration"],
+    ["--solver", "picard"], ["--broyden_ls"]],
+    ids=lambda f: "_".join(f).strip("-"))
+def test_cli_trains_with_each_solver(tmp_path, data_dir, capsys, flags):
+    """One epoch with each solver of the slice: both fixed-point solves
+    run it (one log line each per train step) and the losses are
+    finite."""
+    out = str(tmp_path / "run")
+    main(["--path_dataset", data_dir, "--path_results", out,
+          "--max_epochs", "1", "--batch_size", "3", "--val_sradius", "0",
+          *FAST_FLAGS, *flags])
+    assert "Training finished" in capsys.readouterr().out
+    logs = os.path.join(out, "logs")
+    for name in ("forward_iteration.csv", "backward_iteration.csv"):
+        assert len(_lines(os.path.join(logs, name))) == 3, name
+    ck = load_checkpoint(os.path.join(out, "ckpt", "final_model.ckpt"))
+    hp = ck["hyperparameters"]
+    assert hp["solver"] == (flags[1] if flags[0] == "--solver"
+                            else "broyden")
+    assert hp["ls"] is (flags == ["--broyden_ls"])
+    assert all(np.isfinite(v) for v in ck["hist_train"]["loss"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--family", "dss"], ["--family", "dsgps"],
     ["--num_devices", "2"], ["--num_devices", "0"], ["--stacked_batch"],
-    ["--lowrank_bf16"], ["--lowrank_max_rank", "8"], ["--broyden_ls"],
-    ["--solver", "anderson"], ["--solver", "newton"],
+    ["--lowrank_bf16"], ["--lowrank_max_rank", "8"],
+    ["--solver", "newton"], ["--solver", "newton_krylov"],
     ["--precision", "bfloat16"]], ids=lambda f: "_".join(f).strip("-"))
 def test_cli_refuses_unported_flags(tmp_path, data_dir, capsys, flags):
     with pytest.raises(SystemExit) as e:

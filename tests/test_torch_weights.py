@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import CKPT, jax_mlp_params
+from _torch_parity import CKPT, MIXED_CKPT, jax_mlp_params
 from psignn_tpu_torch import weights
 from psignn_tpu_torch.models import Psignn, PsignnConfig
 
@@ -31,17 +31,22 @@ def _flatten(tree, prefix=""):
     return out
 
 
-def test_load_jax_checkpoint_without_jax_or_optax(tmp_path):
+@pytest.mark.parametrize("ckpt,n_leaves", [(CKPT, 24), (MIXED_CKPT, 32)],
+                         ids=["dirichlet", "mixed"])
+def test_load_jax_checkpoint_without_jax_or_optax(tmp_path, ckpt, n_leaves):
     """In a process where ``import jax`` and ``import optax`` fail, the
-    checkpoint loads and matches an ordinary ``pickle.load`` here."""
+    checkpoint loads, builds its model (the mixed one with the Neumann
+    MLPs) and matches an ordinary ``pickle.load`` here."""
     dump = tmp_path / "params.npz"
     script = textwrap.dedent(f"""
         import json, sys
         import numpy as np
         sys.modules["jax"] = None
         sys.modules["optax"] = None
-        from psignn_tpu_torch.weights import load_jax_checkpoint
-        ck = load_jax_checkpoint({CKPT!r})
+        from psignn_tpu_torch.weights import (load_jax_checkpoint,
+                                              load_psignn_checkpoint)
+        load_psignn_checkpoint({ckpt!r}, "cpu")
+        ck = load_jax_checkpoint({ckpt!r})
         flat = {{}}
         def walk(t, p):
             if isinstance(t, dict):
@@ -65,7 +70,7 @@ def test_load_jax_checkpoint_without_jax_or_optax(tmp_path):
     info = json.loads(proc.stdout.strip().splitlines()[-1])
     assert not info["jax"] and not info["optax"]
 
-    with open(CKPT, "rb") as f:
+    with open(ckpt, "rb") as f:
         want = pickle.load(f)      # imports optax for the optimizer state
     assert info["hp"] == want["hyperparameters"]
     assert info["family"] == want["family"] == "psignn"
@@ -73,7 +78,7 @@ def test_load_jax_checkpoint_without_jax_or_optax(tmp_path):
     flat_want = _flatten(want["params"])
     with np.load(dump) as got:
         assert set(got.files) == set(flat_want)
-        assert len(flat_want) == 24
+        assert len(flat_want) == n_leaves
         for k, v in flat_want.items():
             assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
             np.testing.assert_array_equal(got[k], v, err_msg=k)
