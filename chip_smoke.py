@@ -12,8 +12,9 @@ Phases, each printing one JSON line:
 3. kernel     — the forward fused message-passing kernel against its
                 plain PyTorch version on the card, both directions, on the
                 radius-5 headline mesh at edge_dim 3 and 1, on the train
-                step's 50-mesh batch, and on the mixed train batch's
-                ``from`` packing (the Neumann branch's): max error,
+                step's 50-mesh batch, on the mixed train batch's ``from``
+                packing (the Neumann branch's) and on both packings of the
+                50-mesh batch's DSS form (A′, edge_dim 1): max error,
                 bit-identical relaunch, per-call times (CUDA events, and
                 the device time of every kernel the call launched), the
                 bound.  Then, checked but not timed: width 20, two small
@@ -47,14 +48,33 @@ Phases, each printing one JSON line:
 10. solvers   — the radius-1 sweep mesh solved with the trained Dirichlet
                 weights by ``forward_iteration``, ``anderson`` and
                 Broyden with its line search, each against the CPU.
-11. trainer   — training as a user runs it, for each variant: a fresh
-                dataset from ``data.generate``, one epoch of ``cli.main``,
-                its logs and checkpoints, and one request answered from
-                the new ``best_model.ckpt``: a sweep request (Dirichlet),
-                the test-split table of ``run_eval`` (mixed).
+11. families  — a sweep request of each model family as a user runs it:
+                the trained Ψ-GNN, DS-GPS and DSS Dirichlet checkpoints
+                through ``load_predictor`` and ``growing_geometry_sweep``
+                on one mesh at each of radii 1, 2 and 5 (DS-GPS and DSS
+                launch the kernel exactly 2k times a request); then the
+                radius-1 request of DS-GPS and DSS on the CPU.
+12. dsgps_mixed_eval — phase 8's mixed test batch answered by the trained
+                ``results/dsgps_mixed`` checkpoint (3k launches), then on
+                the CPU.
+13. unrolled_train_step — ``train.unrolled_train_step`` of DSS (the
+                50-mesh batch's A′ form), DS-GPS (the 50-mesh batch) and
+                mixed DS-GPS (the mixed 50-mesh batch) from their trained
+                weights: a warm-up that also creates Adam's state, three
+                timed steps from the same parameters with 2k (mixed 3k)
+                forward and backward launches each, one profiled step,
+                and a 2-mesh step on the GPU against the CPU.
+14. trainer   — training as a user runs it: a fresh Dirichlet dataset
+                (with DSS's encoding) and a fresh mixed one from
+                ``data.generate``, one epoch of ``cli.main`` for Ψ-GNN in
+                each variant, DSS, and DS-GPS in each variant, their logs
+                and checkpoints, and one request answered from each new
+                ``best_model.ckpt``: a sweep request (Dirichlet), the
+                test-split table of ``run_eval`` (mixed).
 
 Then a ``seconds`` line (each phase's wall seconds; ``graphs`` builds the
-headline mesh and both 50-mesh batches), one ``{"kernels": [...]}`` line,
+headline mesh and the three 50-mesh batches), one ``{"kernels": [...]}``
+line,
 the ``nvidia-smi`` name/power-limit line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero.  Imports nothing of JAX or ``psignn_tpu``.
@@ -78,6 +98,11 @@ import psignn_tpu_torch  # noqa: F401
 
 CKPT = "results/psignn_dirichlet/ckpt/best_model.ckpt"
 MIXED_CKPT = "results/psignn_mixed/ckpt/best_model.ckpt"
+DSS_CKPT = "results/dss_dirichlet/ckpt/best_model.ckpt"
+DSGPS_CKPT = "results/dsgps_dirichlet/ckpt/best_model.ckpt"
+DSGPS_MIXED_CKPT = "results/dsgps_mixed/ckpt/best_model.ckpt"
+# the families phase: each family's Dirichlet checkpoint
+FAMILY_CKPTS = {"psignn": CKPT, "dsgps": DSGPS_CKPT, "dss": DSS_CKPT}
 SWEEP_RADII = (1.0, 2.0, 5.0)
 HEADLINE_ITERS = 531
 # The model's latent width, and a width above 16 for the kernels' 32-lane
@@ -133,9 +158,35 @@ MIXED_EVAL_DATA = dict(n_mesh=10, n_samples=5, radius=1.0, hsize=0.08,
 # thread count stops at step 29 with lowest values within 0.3 %, and step
 # 28 lies 15 % above it: the batch's nstep and lowest are compared there.
 MIXED_REACHABLE_TOL = 5e-3
+# the trainer phase: (family, variant) of each CLI epoch
+TRAINER_RUNS = (("psignn", "dirichlet"), ("psignn", "mixed"),
+                ("dss", "dirichlet"), ("dsgps", "dirichlet"),
+                ("dsgps", "mixed"))
 # the solvers phase: (solver, Armijo line search)
 SOLVER_CASES = (("forward_iteration", False), ("anderson", False),
                 ("broyden", True))
+# DSS and DS-GPS unroll k fixed steps with no stopping test, so the card
+# and the CPU run the same arithmetic in other f32 summation orders (the
+# kernels' against index_add_ and BLAS): u within 1e-4 of max(1, max|u|)
+# after k = 30 steps, and the physics residual within RES_REL_TOL.
+UNROLLED_U_TOL = 1e-4
+# unrolled_train_step: (phase case, checkpoint, sample form, variant, lr)
+# with the recorded learning rates (results/dss_dirichlet/logs/
+# model_config.csv; results/dsgps_*/relaunch.cmd) and clip 0.01
+UNROLLED_CASES = (("dss", DSS_CKPT, "dss", "dirichlet", 0.01),
+                  ("dsgps", DSGPS_CKPT, "psignn", "dirichlet", 1e-3),
+                  ("dsgps_mixed", DSGPS_MIXED_CKPT, "psignn", "mixed", 1e-3))
+UNROLLED_CLIP = 0.01
+# GPU vs CPU unrolled step on 2 meshes, backpropagated through k = 30
+# steps with f32 sums in other orders.  On the CPU, f32 against f64 moves
+# these losses by up to 5e-5 (relative) and DS-GPS's gradients by up to
+# 1.2e-2 of the step's whole gradient norm (``correction``'s first
+# weight; its autoencoder gradients by 11 % of their own small norms):
+# tools/torch_unrolled_rounding.py.  So each loss is held within 1e-3
+# (relative), and each parameter's gradient within 1e-2 of the step's
+# whole gradient norm, about f32's own distance from f64 on this step.
+UNROLLED_LOSS_RTOL = 1e-3
+UNROLLED_GRAD_TOL = 1e-2
 
 
 def emit(phase: str, **kw) -> None:
@@ -165,11 +216,20 @@ def cuda_ms(fn, reps: int = 200, warmup: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_events(prof) -> list:
+    """The device's kernels and copies in a ``torch.profiler`` trace.  A
+    ``record_function`` range (``Optimizer.step#Adam.step``) also shows on
+    the device's timeline, spanning its kernels and the gaps between them;
+    it is left out."""
+    from torch.autograd import DeviceType
+    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
+
+
 def kernel_device_ms(fn, reps: int = 50) -> tuple[float, float]:
     """(device ms, device kernels) per ``fn()`` call: every kernel the
     device ran inside the calls, whatever its name, from ``torch.profiler``.
     Raises when the profiler records no device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -178,8 +238,7 @@ def kernel_device_ms(fn, reps: int = 50) -> tuple[float, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA]
+    spans = [ev.time_range.elapsed_us() for ev in device_events(prof)]
     if not sum(spans):
         raise RuntimeError("torch.profiler recorded no device time")
     return sum(spans) / reps / 1000.0, len(spans) / reps
@@ -267,12 +326,14 @@ def phase_build() -> None:
              library=str(res.path.name), ptxas=ptxas)
 
 
-def mp_cases(graph, sample, tgraph, mgraph, device):
+def mp_cases(graph, sample, tgraph, mgraph, dgraph, device):
     """(mesh, edge_dim, direction, csr, width, timed) of each kernel check.
     Timed, at the main paths' shapes: the radius-5 headline mesh at
-    edge_dim 3 and at DSS's 1-dim edge feature (the matrix value a_ij),
-    then the train step's 50-mesh batch, and the mixed 50-mesh batch's
-    ``from`` packing, which its Neumann branch adds to ``phi_from``'s.
+    edge_dim 3 and at a 1-dim edge feature (the matrix value a_ij),
+    then the train step's 50-mesh batch, the mixed 50-mesh batch's
+    ``from`` packing, which its Neumann branch adds to ``phi_from``'s, and
+    both packings of the 50-mesh batch's DSS form (A′ without its
+    Dirichlet rows, edge_dim 1 from ``a_ij_norm``).
     Checked only: the headline mesh
     at width 20 (32 lanes a row), a small ragged graph at the model's
     widths and at width 12, edge_dim 2 (widths the kernels take at run
@@ -291,6 +352,8 @@ def mp_cases(graph, sample, tgraph, mgraph, device):
     cases += [("train", 3, "to", tgraph.mp_to, WIDTH, True),
               ("train", 3, "from", tgraph.mp_from, WIDTH, True),
               ("mixed_train", 3, "from", mgraph.mp_from, WIDTH, True),
+              ("dss_train", 1, "to", dgraph.mp_to, WIDTH, True),
+              ("dss_train", 1, "from", dgraph.mp_from, WIDTH, True),
               ("headline", 3, "to", graph.mp_to, WIDE, False),
               ("ragged", 3, "to", ragged_csr(3, device), WIDTH, False),
               ("ragged", 2, "to", ragged_csr(2, device), 12, False),
@@ -298,6 +361,11 @@ def mp_cases(graph, sample, tgraph, mgraph, device):
                                           5, "to", device=device),
                WIDTH, False)]
     return cases
+
+
+def empty_rows(csr) -> int:
+    """Rows of a packing with no edge (DSS's Dirichlet rows in ``from``)."""
+    return int((csr.row_ptr.diff() == 0).sum())
 
 
 def ragged_csr(edge_dim: int, device):
@@ -354,6 +422,7 @@ def phase_kernel(cases, device) -> dict:
             scale = float(ref.abs().max()) if ref.numel() else 0.0
             case = dict(mesh=mesh, direction=direction, edge_dim=edge_dim,
                         width=width, n_rows=csr.n_rows, n_edges=csr.n_edges,
+                        empty_rows=empty_rows(csr),
                         max_abs_err=err, max_rel_err=err / max(scale, 1e-30),
                         bit_identical=bool(torch.equal(out1, out2)))
             if timed:
@@ -514,7 +583,7 @@ def phase_kernel_bwd(cases, device) -> dict:
                       for k, b in zip(names, ref)}
             case = dict(mesh=mesh, direction=direction, edge_dim=edge_dim,
                         width=width, n_rows=csr.n_rows, n_edges=csr.n_edges,
-                        max_abs_err=errs,
+                        empty_rows=empty_rows(csr), max_abs_err=errs,
                         max_rel_err={k: errs[k] / max(scales[k], 1e-30)
                                      for k in names},
                         bit_identical=all(torch.equal(a, b)
@@ -544,13 +613,15 @@ def phase_kernel_bwd(cases, device) -> dict:
 
 
 def train_graph(n_meshes: int, seed: int, device,
-                variant: str = "dirichlet"):
+                variant: str = "dirichlet", form: str = "psignn"):
     """``bench.py``'s training batch: seeded radius-1 blob meshes (hsize
     0.08; mixed-BC ones for ``variant='mixed'``), FEM-solved, concatenated
-    into one graph."""
+    into one graph; ``form='dss'`` gives the same Dirichlet meshes and
+    solves in DSS's A′ form."""
     from psignn_tpu_torch.data.fem import solve_poisson, solve_poisson_mixed
     from psignn_tpu_torch.data.meshgen import blob_mesh, mixed_blob_mesh
-    from psignn_tpu_torch.data.reader import psignn_sample_from_fem
+    from psignn_tpu_torch.data.reader import (dss_sample_from_fem,
+                                              psignn_sample_from_fem)
     from psignn_tpu_torch.graphs import batch_graphs
     make, solve = ((mixed_blob_mesh, solve_poisson_mixed)
                    if variant == "mixed" else (blob_mesh, solve_poisson))
@@ -558,15 +629,17 @@ def train_graph(n_meshes: int, seed: int, device,
     samples = []
     for _ in range(n_meshes):
         mesh = make(radius=1.0, hsize=0.08, rng=rng)
-        samples.append(psignn_sample_from_fem(solve(mesh, 1.0, rng),
-                                              variant=variant))
+        s = solve(mesh, 1.0, rng)
+        samples.append(dss_sample_from_fem(s) if form == "dss"
+                       else psignn_sample_from_fem(s, variant=variant))
     return batch_graphs(samples, device=device)
 
 
-def trained_model(device, overrides, ckpt=CKPT):
-    """(model, cfg, initial state dict) of a trained checkpoint."""
-    from psignn_tpu_torch.weights import load_psignn_checkpoint
-    model, cfg = load_psignn_checkpoint(ckpt, device, overrides)
+def trained_model(device, overrides=None, ckpt=CKPT):
+    """(model, cfg, initial state dict) of a trained checkpoint of any
+    family."""
+    from psignn_tpu_torch.weights import load_model_checkpoint
+    _, model, cfg = load_model_checkpoint(ckpt, device, overrides)
     init = {k: v.clone() for k, v in model.state_dict().items()}
     return model, cfg, init
 
@@ -729,10 +802,10 @@ def counted_predictor(ckpt: str, device, overrides=None):
     return cfg, answer
 
 
-def phase_mixed_eval(device) -> int:
+def phase_mixed_eval(device):
     """A fresh mixed dataset's test split (one batch of 10 meshes) through
     ``run_eval``'s path with the mixed checkpoint, on the card and on the
-    CPU.  Returns the card's forward launches."""
+    CPU.  Returns the card's forward launches and the test split."""
     from psignn_tpu_torch.data.generate import generate_data
     from psignn_tpu_torch.data.reader import (GraphLoader, load_dataset,
                                               split_dataset)
@@ -783,7 +856,7 @@ def phase_mixed_eval(device) -> int:
             or abs(gpu_r["nstep"] - cpu_r["nstep"]) > NSTEP_SLACK
             or cpu["prot_break"] or cpu_r["prot_break"]):
         raise RuntimeError(f"GPU and CPU mixed tables disagree: {agree}")
-    return gpu["fwd_launches"]
+    return gpu["fwd_launches"], test
 
 
 def phase_solvers(device) -> None:
@@ -826,30 +899,38 @@ def phase_solvers(device) -> None:
 
 
 def phase_trainer(device) -> None:
-    """For each variant: a fresh 4-mesh × 5-sample dataset (12/4/4 split),
-    one epoch of the CLI at batch 4 (three train steps, one validation step
-    with the power method), then one request from the new best checkpoint:
-    a sweep request (Dirichlet), the test-split table of ``run_eval``
-    (mixed)."""
+    """A fresh 4-mesh × 5-sample dataset of each variant (12/4/4 split; the
+    Dirichlet one with DSS's encoding), then for each run of
+    ``TRAINER_RUNS`` one epoch of the CLI at batch 4 (three train steps,
+    one validation step, with the power method for Ψ-GNN) and one request
+    from the new best checkpoint: a sweep request (Dirichlet), the
+    test-split table of ``run_eval`` (mixed)."""
     from psignn_tpu_torch.cli.main import main as train_main
-    from psignn_tpu_torch.data.generate import generate_data
+    from psignn_tpu_torch.data.generate import add_dss_variable, generate_data
     from psignn_tpu_torch.eval import run_eval
     from psignn_tpu_torch.eval.sweep import growing_geometry_sweep
     from psignn_tpu_torch.kernels import fused_mp as mp
+    root = os.path.join(".chipwork", "smoke_trainer")
+    shutil.rmtree(root, ignore_errors=True)
+    data = {}
     for variant in ("dirichlet", "mixed"):
-        work = os.path.join(".chipwork", "smoke_trainer", variant)
-        shutil.rmtree(work, ignore_errors=True)
-        data = os.path.join(work, "data")
-        results = os.path.join(work, "results")
+        path = os.path.join(root, "data_" + variant)
         t0 = time.perf_counter()
-        generate_data(data, n_mesh=4, n_samples=5, radius=1.0, hsize=0.08,
+        generate_data(path, n_mesh=4, n_samples=5, radius=1.0, hsize=0.08,
                       variant=variant, verbose=False)
-        gen_s = time.perf_counter() - t0
+        if variant == "dirichlet":
+            add_dss_variable(path)
+        data[variant] = (path, time.perf_counter() - t0)
+    for family, variant in TRAINER_RUNS:
+        path, gen_s = data[variant]
+        work = os.path.join(root, f"{family}_{variant}")
+        results = os.path.join(work, "results")
         mp.LAUNCHES = mp.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
-        train_main(["--variant", variant, "--path_dataset", data,
-                    "--path_results", results, "--batch_size", "4",
-                    "--max_epochs", "1", "--device", str(device)])
+        train_main(["--family", family, "--variant", variant,
+                    "--path_dataset", path, "--path_results", results,
+                    "--batch_size", "4", "--max_epochs", "1",
+                    "--device", str(device)])
         train_s = time.perf_counter() - t0
         launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
         logs = os.path.join(results, "logs")
@@ -864,38 +945,284 @@ def phase_trainer(device) -> None:
                  for name in ("running_model", "best_model", "final_model")}
         best = os.path.join(results, "ckpt", "best_model.ckpt")
         if variant == "dirichlet":
-            predict, family, _, _ = run_eval.load_predictor(best, device)
+            predict, fam, _, _ = run_eval.load_predictor(best, device)
             req = growing_geometry_sweep(
-                {family: predict}, radii=(1.0,), n_meshes=1, hsize=0.08,
-                seed=0, device=device, warmup=False)[family][1.0]
+                {fam: predict}, radii=(1.0,), n_meshes=1, hsize=0.08,
+                seed=0, device=device, warmup=False,
+                families=sweep_forms(fam))[fam][1.0]
             req = {k: req[k] for k in ("n_nodes", "nstep", "res", "mse")}
         else:
             out = os.path.join(work, "eval")
             run_eval.main(["--ckpt", best, "--variant", "mixed",
-                           "--path_dataset", data, "--batch_size", "4",
+                           "--path_dataset", path, "--batch_size", "4",
                            "--out", out, "--device", str(device)])
             with open(os.path.join(out, "test_metrics.json")) as f:
                 table = json.load(f)
             req = dict(res=table["res_mean"], mse=table["mse_mean"],
                        rel=table["rel_mean"])
-        rec = dict(variant=variant, generate_s=gen_s, train_s=train_s,
-                   fwd_launches=launches[0], bwd_launches=launches[1],
-                   log_lines=lines, checkpoints=ckpts, request=req)
+        rec = dict(family=family, variant=variant, generate_s=gen_s,
+                   train_s=train_s, fwd_launches=launches[0],
+                   bwd_launches=launches[1], log_lines=lines,
+                   checkpoints=ckpts, request=req)
         emit("trainer", **rec)
-        # header + 3 steps in each iteration log, one spectral radius
+        # Ψ-GNN: header + 3 steps in each iteration log, one spectral
+        # radius; the unrolled families write the headers only
+        psignn = family == "psignn"
         if (not all(ckpts.values()) or 0 in launches
-                or lines["forward_iteration.csv"] != 4
-                or lines["backward_iteration.csv"] != 4
-                or lines["spectral_radius.csv"] != 2
-                or not all(np.isfinite(req[k]) for k in ("res", "mse"))):
+                or lines["forward_iteration.csv"] != (4 if psignn else 1)
+                or lines["backward_iteration.csv"] != (4 if psignn else 1)
+                or lines["spectral_radius.csv"] != (2 if psignn else 1)
+                or not finite(req["res"], req["mse"])):
             raise RuntimeError(f"trainer phase failed: {rec}")
+
+def mp_per_step(cfg) -> int:
+    """Fused message passings in one DS-GPS or DSS step, each one kernel
+    launch: ``phi_to`` and ``phi_from``, and ``phi_neumann`` in the mixed
+    DS-GPS."""
+    return 3 if getattr(cfg, "bc_mode", "dirichlet") == "mixed" else 2
+
+
+def sweep_forms(family: str) -> tuple:
+    """The sample forms a sweep builds for a family's predictor."""
+    return ("psignn", "dss") if family == "dss" else ("psignn",)
+
+
+def finite(*values) -> bool:
+    return all(np.isfinite(v) for v in values)
+
+
+def radius1_graphs(family: str, devices):
+    """The sweep's first mesh (radius 1, seed 0) in the family's sample
+    form, one graph on each device."""
+    from psignn_tpu_torch.data.meshgen import blob_mesh
+    from psignn_tpu_torch.eval.sweep import build_data
+    from psignn_tpu_torch.graphs import batch_graphs
+    form = "dss" if family == "dss" else "psignn"
+    rng = np.random.default_rng(0)
+    mesh = blob_mesh(radius=1.0, hsize=0.08, rng=rng)
+    sample = build_data(mesh, 1.0, rng, (form,))[form]
+    return [batch_graphs([sample], device=d) for d in devices]
+
+
+def phase_families(device) -> None:
+    """A sweep request of each family's trained Dirichlet checkpoint (one
+    mesh at each of ``SWEEP_RADII``) through the user's entry points, with
+    each request's kernel launches; then the radius-1 request of DS-GPS
+    and DSS on the CPU."""
+    from psignn_tpu_torch.eval.metrics import errors_batch
+    from psignn_tpu_torch.eval.run_eval import load_predictor
+    from psignn_tpu_torch.eval.sweep import growing_geometry_sweep
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    cpu = torch.device("cpu")
+    for family, ckpt in FAMILY_CKPTS.items():
+        predict, _, cfg, _ = load_predictor(ckpt, device)
+        deltas = []
+
+        def counted(graph):
+            before = mp.LAUNCHES
+            out = predict(graph)
+            deltas.append(mp.LAUNCHES - before)
+            return out
+
+        mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+        summary = growing_geometry_sweep(
+            {family: counted}, radii=SWEEP_RADII, n_meshes=1, hsize=0.08,
+            seed=0, device=device, families=sweep_forms(family))[family]
+        launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
+        # DS-GPS and DSS: one launch per message passing, k steps
+        want = None if family == "psignn" else mp_per_step(cfg) * cfg.k
+        for i, r in enumerate(SWEEP_RADII):
+            m = summary[r]
+            # the timed call of each mesh follows its warm-up
+            req = dict(family=family, radius=r, n_nodes=int(m["n_nodes"]),
+                       n_edges=int(m["n_edges"]), seconds=m["time"],
+                       res=m["res"], rel=m["rel"], mse=m["mse"],
+                       nstep=int(m["nstep"]), launches=deltas[2 * i + 1],
+                       expected_launches=want)
+            emit("families", **req)
+            if (not finite(req["seconds"], req["res"], req["rel"])
+                    or req["launches"] == 0
+                    or want is not None and req["launches"] != want):
+                raise RuntimeError(f"families request failed: {req}")
+        if launches[0] == 0 or launches[1]:
+            raise RuntimeError(f"{family} sweep launched {launches}")
+        if family == "psignn":
+            continue     # compared with the CPU by the slice phase
+        gpu_g, cpu_g = radius1_graphs(family, (device, cpu))
+        u_gpu = predict(gpu_g)
+        u_cpu = load_predictor(ckpt, cpu)[0](cpu_g)
+        res_gpu = float(errors_batch(u_gpu, gpu_g)["res"][0])
+        res_cpu = float(errors_batch(u_cpu, cpu_g)["res"][0])
+        u_diff = float((u_gpu.cpu() - u_cpu).abs().max())
+        scale = max(1.0, float(u_cpu.abs().max()))
+        rec = dict(family=family, k=cfg.k, n_nodes=cpu_g.total_nodes,
+                   res_gpu=res_gpu, res_cpu=res_cpu,
+                   res_rel_diff=abs(res_gpu - res_cpu) / res_cpu,
+                   res_rtol=RES_REL_TOL, u_max_abs_diff=u_diff,
+                   u_scale=scale, u_tol=UNROLLED_U_TOL)
+        emit("families_cpu_agreement", **rec)
+        if (u_diff > UNROLLED_U_TOL * scale
+                or rec["res_rel_diff"] > RES_REL_TOL):
+            raise RuntimeError(f"GPU and CPU {family} requests disagree: "
+                               f"{rec}")
+
+
+def phase_dsgps_mixed_eval(test, device) -> None:
+    """The mixed_eval phase's test batch answered by the trained mixed
+    DS-GPS through ``run_eval``'s path (``load_predictor`` →
+    ``GraphLoader`` → ``evaluate_dataset``), on the card and on the CPU."""
+    from psignn_tpu_torch.data.reader import GraphLoader
+    from psignn_tpu_torch.eval.metrics import evaluate_dataset
+    from psignn_tpu_torch.eval.run_eval import load_predictor
+    from psignn_tpu_torch.kernels import fused_mp as mp
+
+    def table(dev):
+        predict, _, cfg, _ = load_predictor(DSGPS_MIXED_CKPT, dev)
+        rec = {}
+
+        def answer(graph):
+            sync(dev)
+            mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            u = predict(graph)
+            sync(dev)
+            rec.update(seconds=time.perf_counter() - t0,
+                       fwd_launches=mp.LAUNCHES, bwd_launches=mp.BWD_LAUNCHES,
+                       u=u.cpu())
+            return u
+
+        loader = GraphLoader(test, batch_size=len(test), device=dev)
+        means = {k: v for k, v in evaluate_dataset(
+            answer, loader, verbose=False).items() if k.endswith("_mean")}
+        return cfg, rec.pop("u"), dict(rec, **means)
+
+    cfg, u_gpu, gpu = table(device)
+    want = mp_per_step(cfg) * cfg.k
+    emit("dsgps_mixed_eval", k=cfg.k, n_graphs=len(test),
+         n_nodes=sum(len(s["x"]) for s in test), expected_launches=want,
+         **gpu)
+    if (gpu["fwd_launches"] != want or gpu["bwd_launches"]
+            or not finite(*(v for k, v in gpu.items()
+                            if k.endswith("_mean")))):
+        raise RuntimeError(f"dsgps_mixed_eval failed: {gpu}")
+    _, u_cpu, cpu = table("cpu")
+    u_diff = float((u_gpu - u_cpu).abs().max())
+    scale = max(1.0, float(u_cpu.abs().max()))
+    rec = dict(gpu_res_mean=gpu["res_mean"], cpu_res_mean=cpu["res_mean"],
+               res_rel_diff=abs(gpu["res_mean"] - cpu["res_mean"])
+               / cpu["res_mean"], res_rtol=RES_REL_TOL,
+               u_max_abs_diff=u_diff, u_scale=scale, u_tol=UNROLLED_U_TOL)
+    emit("dsgps_mixed_eval_cpu_agreement", **rec)
+    if u_diff > UNROLLED_U_TOL * scale or rec["res_rel_diff"] > RES_REL_TOL:
+        raise RuntimeError(f"GPU and CPU mixed DS-GPS tables disagree: {rec}")
+
+
+def unrolled_step_from(model, cfg, init, graph, lr: float, opt=None):
+    """One ``unrolled_train_step`` from the parameters ``init`` with the
+    Adam ``opt`` (default: a fresh one), timed by the host clock around
+    it.  The loss and gradients depend on the parameters only; an Adam that
+    already took a step has its state and skips the lazy creation of two
+    moment tensors per parameter (DSS has 480 parameter tensors), as every
+    step after a run's first does."""
+    from psignn_tpu_torch.train import make_adam, unrolled_train_step
+    model.load_state_dict(init)
+    opt = opt or make_adam(model, lr)
+    sync(graph.device)
+    t0 = time.perf_counter()
+    res = unrolled_train_step(model, opt, graph, cfg, lr, UNROLLED_CLIP)
+    sync(graph.device)
+    return res, time.perf_counter() - t0
+
+
+def phase_unrolled_train_step(built, device, smi: str) -> None:
+    """Each case of ``UNROLLED_CASES`` on its 50-mesh batch of ``built``
+    ({(form, variant): (graph, build seconds)}): a warm-up, three timed
+    steps from the same parameters with one Adam (which the warm-up
+    initialised) and their kernel launches, one profiled step, then a
+    2-mesh step on the GPU against the CPU."""
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    from psignn_tpu_torch.train import make_adam
+    for case, ckpt, form, variant, lr in UNROLLED_CASES:
+        graph, graph_s = built[(form, variant)]
+        t0 = time.perf_counter()
+        model, cfg, init = trained_model(device, ckpt=ckpt)
+        setup_s = graph_s + time.perf_counter() - t0
+        opt = make_adam(model, lr)
+        _, first_s = unrolled_step_from(model, cfg, init, graph, lr, opt)
+        torch.cuda.reset_peak_memory_stats()
+        # one forward and one backward launch per message passing
+        want = (mp_per_step(cfg) * cfg.k,) * 2
+        steps = []
+        for _ in range(3):
+            mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+            res, wall = unrolled_step_from(model, cfg, init, graph, lr, opt)
+            launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
+            rec = dict(seconds=wall, loss=res.loss, losses=res.losses,
+                       grad_norm=res.grad_norm, fwd_launches=launches[0],
+                       bwd_launches=launches[1], expected_launches=list(want))
+            steps.append(rec)
+            if (not finite(res.loss, res.grad_norm, *res.losses.values())
+                    or launches != want):
+                raise RuntimeError(f"unrolled_train_step {case} failed: "
+                                   f"{rec}")
+        best = min(r["seconds"] for r in steps)
+        emit("unrolled_train_step", card=smi, case=case, k=cfg.k, lr=lr,
+             clip=UNROLLED_CLIP, n_meshes=TRAIN_MESHES,
+             n_nodes=graph.total_nodes, n_edges=int(graph.senders.shape[0]),
+             mp_edges=graph.mp_to.n_edges, setup_s=setup_s,
+             first_step_s=first_s, step_s=best,
+             step_s_all=[r["seconds"] for r in steps],
+             peak_mem_bytes=torch.cuda.max_memory_allocated(), steps=steps)
+        emit("unrolled_train_step_profile", card=smi, case=case,
+             unprofiled_step_s=best, **device_breakdown(
+                 lambda: unrolled_step_from(model, cfg, init, graph, lr,
+                                            opt)))
+        unrolled_cpu_agreement(case, ckpt, form, variant, lr, device)
+
+
+def unrolled_cpu_agreement(case: str, ckpt: str, form: str, variant: str,
+                           lr: float, device) -> None:
+    """The same unrolled step on 2 meshes on the GPU and on the CPU."""
+    out = []
+    for dev in (device, torch.device("cpu")):
+        graph = train_graph(CMP_MESHES, 1, dev, variant, form)
+        model, cfg, init = trained_model(dev, ckpt=ckpt)
+        res, _ = unrolled_step_from(model, cfg, init, graph, lr)
+        out.append((res, {k: p.grad.detach().cpu() for k, p in
+                          model.named_parameters() if p.grad is not None}))
+    (gpu, ggrad), (cpu, cgrad) = out
+
+    def rel(a, b):
+        return abs(a - b) / abs(b) if b else abs(a)
+
+    def norm(t):
+        return float(torch.linalg.vector_norm(t))
+
+    loss_rel = {k: rel(gpu.losses[k], cpu.losses[k]) for k in cpu.losses}
+    total = norm(torch.cat([g.flatten() for g in cgrad.values()]))
+    diff = {k: norm(ggrad[k] - cgrad[k]) for k in cgrad}
+    own = {k: diff[k] / max(norm(cgrad[k]), 1e-30) for k in cgrad}
+    rec = dict(case=case, n_meshes=CMP_MESHES, gpu_loss=gpu.loss,
+               cpu_loss=cpu.loss, gpu_grad_norm=gpu.grad_norm,
+               cpu_grad_norm=cpu.grad_norm,
+               max_loss_rel_diff=max(loss_rel.values()),
+               worst_loss=max(loss_rel, key=loss_rel.get),
+               max_grad_diff_of_total=max(diff.values()) / total,
+               worst_grad=max(diff, key=diff.get),
+               max_grad_rel_diff_own=max(own.values()),
+               worst_grad_own=max(own, key=own.get),
+               loss_rtol=UNROLLED_LOSS_RTOL, grad_tol=UNROLLED_GRAD_TOL)
+    emit("unrolled_train_step_cpu_agreement", **rec)
+    if (rec["max_loss_rel_diff"] > UNROLLED_LOSS_RTOL
+            or rec["max_grad_diff_of_total"] > UNROLLED_GRAD_TOL
+            or set(ggrad) != set(cgrad)):
+        raise RuntimeError(f"GPU and CPU unrolled steps disagree: {rec}")
 
 
 def device_breakdown(run, top: int = 8) -> dict:
     """One more run of ``run`` under ``torch.profiler``: the device's kernel
     time in all and by kernel name, and the busy share of the unprofiled
     wall it implies.  Kernels run on one stream, so their times add."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -903,10 +1230,9 @@ def device_breakdown(run, top: int = 8) -> dict:
         run()
         profiled_wall = time.perf_counter() - t0
     by_name: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            tot, cnt = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
+    for ev in device_events(prof):
+        tot, cnt = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
     busy_s = sum(t for t, _ in by_name.values()) * 1e-6
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(profiled_wall_s=profiled_wall, device_kernel_s=busy_s,
@@ -928,24 +1254,30 @@ def main() -> None:
     device = torch.device("cuda")
     timed("build", phase_build)
     graph, sample = timed("graphs", headline_graph, device)
+    # the 50-mesh batches by (sample form, variant)
     built = {}
-    for variant in ("dirichlet", "mixed"):
+    for form, variant in (("psignn", "dirichlet"), ("psignn", "mixed"),
+                          ("dss", "dirichlet")):
         t0 = time.perf_counter()
-        g = train_graph(TRAIN_MESHES, 0, device, variant)
-        built[variant] = (g, time.perf_counter() - t0)
+        g = train_graph(TRAIN_MESHES, 0, device, variant, form)
+        built[(form, variant)] = (g, time.perf_counter() - t0)
     seconds["graphs"] += sum(t for _, t in built.values())
-    (tgraph, tgraph_s), (mgraph, mgraph_s) = built.values()
-    cases = mp_cases(graph, sample, tgraph, mgraph, device)
+    (tgraph, tgraph_s), (mgraph, mgraph_s), (dgraph, _) = built.values()
+    cases = mp_cases(graph, sample, tgraph, mgraph, dgraph, device)
     fwd = timed("kernel", phase_kernel, cases, device)
     bwd = timed("kernel_bwd", phase_kernel_bwd, cases, device)
     fwd["launches"] = timed("slice", phase_slice, device)
     timed("headline", phase_headline, graph, sample, device, smi)
     bwd["launches"] = timed("train_step", phase_train_step, tgraph, tgraph_s,
                             device, smi)[1]
-    timed("mixed_eval", phase_mixed_eval, device)
+    _, mixed_test = timed("mixed_eval", phase_mixed_eval, device)
     timed("mixed_train_step", phase_train_step, mgraph, mgraph_s, device,
           smi, MIXED_CKPT, "mixed_train_step")
     timed("solvers", phase_solvers, device)
+    timed("families", phase_families, device)
+    timed("dsgps_mixed_eval", phase_dsgps_mixed_eval, mixed_test, device)
+    timed("unrolled_train_step", phase_unrolled_train_step, built, device,
+          smi)
     timed("trainer", phase_trainer, device)
     emit("seconds", **seconds)
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)

@@ -2,24 +2,27 @@
 
 Runs Ψ-GNN inference (fresh mesh → FEM system → encoder → fixed point of
 the update function → decoder → residual metrics) and training
-(implicit-gradient DEQ step, dual Adam, trainer and CLI), with Dirichlet
-or mixed Dirichlet+Neumann conditions, on an NVIDIA GPU, with the fused
-message passing and its backward as hand-written CUDA kernels
+(implicit-gradient DEQ step, dual Adam, trainer and CLI), and the same for
+the paper's two baselines, DS-GPS and DSS (k-step unrolls, trained by
+backpropagation through the unroll), with Dirichlet or mixed
+Dirichlet+Neumann conditions (DSS: Dirichlet), on an NVIDIA GPU, with the
+fused message passing and its backward as hand-written CUDA kernels
 (``kernels/csrc/fused_mp_{fwd,bwd}.cu``).  Module names mirror the JAX
 package so each counterpart is easy to find:
 
   graphs   — unpadded concatenated mesh graphs + CSR edge packings
   nn       — Xavier-initialised MLP blocks
-  ops      — message passing, SpMV residual, masked means
+  ops      — message passing, SpMV and BC-encoded residuals, masked means
   solvers  — Picard, Anderson, Broyden (+ Armijo line search); Newton and
              Newton-Krylov not yet ported
   deq      — forward solve, implicit backward, Jacobian regularisers
-  models   — Ψ-GNN (Dirichlet and mixed), inference, the training forward
+  models   — Ψ-GNN, DS-GPS (Dirichlet and mixed) and DSS (Dirichlet):
+             inference and the training forwards
   weights  — JAX parameter trees and checkpoints ↔ port modules
   data     — blob and mixed meshes, P1 FEM assembly, samples, dataset
              factory and loader
   kernels  — the CUDA fused message-passing kernels and plain versions
-  train    — optimizers, the train step, checkpoints, the trainer
+  train    — optimizers, the train steps, checkpoints, the trainer
   cli      — the training command line
   eval     — per-graph metrics, the test-split table and the
              growing-geometry sweep

@@ -1,19 +1,23 @@
-"""Training CLI of the port: Ψ-GNN, Dirichlet or mixed, one device.
+"""Training CLI of the port: Ψ-GNN, DS-GPS and DSS, Dirichlet or mixed
+(DSS: Dirichlet only), one device.
 
 Port of ``psignn_tpu/cli/main.py`` for the paths the port has::
 
     python -m psignn_tpu_torch.cli.main --family psignn --variant mixed \\
         --path_dataset data/ --solver broyden --fw_tol 1e-5 --fw_thres 500 \\
         --lr_deq 0.01 --lr_ae 0.05 --jac_weight 1.0 --batch_size 50
+    python -m psignn_tpu_torch.cli.main --family dsgps --path_dataset data/ \\
+        --k 30 --gamma 0.9 --lr 1e-3 --spike_guard
 
 The flags keep the JAX CLI's names and defaults; ``--solver`` also takes
-``picard``, another name of ``forward_iteration``.  A flag
-for a path that is not yet ported (``--family dss|dsgps``,
-``--num_devices`` other than 1, ``--stacked_batch``, ``--lowrank_*``,
-``--solver newton|newton_krylov``, ``--precision bfloat16``) is refused;
-the TPU-only ``--rcm``, ``--pallas`` and ``--cache_batches`` and the
-DSS/DS-GPS knobs are not flags here.  ``--device`` picks the torch device
-(default: cuda).  The mixed variant's split is shuffled by ``--seed``.
+``picard``, another name of ``forward_iteration``.  ``--gradient_clip``
+defaults to the family's canonical value: 0.1 for Ψ-GNN, 0.01 for DS-GPS
+and DSS.  A flag for a path that is not yet ported (``--num_devices``
+other than 1, ``--stacked_batch``, ``--lowrank_*``, ``--solver
+newton|newton_krylov``, ``--precision bfloat16``) is refused; the TPU-only
+``--rcm``, ``--pallas`` and ``--cache_batches`` are not flags here.
+``--device`` picks the torch device (default: cuda).  The mixed variant's
+split is shuffled by ``--seed``.
 
 A run without ``--resume`` starts afresh: it deletes the ``ckpt/`` and
 ``logs/`` an earlier run left in ``--path_results`` (default
@@ -47,10 +51,13 @@ def get_parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--batch_size", type=int, default=50)
     p.add_argument("--min_loss_save", type=float, default=1e10)
-    p.add_argument("--gradient_clip", type=float, default=0.1)
+    p.add_argument("--gradient_clip", type=float, default=None,
+                   help="default: canonical per family (psignn 0.1, "
+                        "dsgps/dss 0.01)")
     p.add_argument("--stats", type=str, default="reference",
                    choices=["reference", "auto"])
     # optimizers
+    p.add_argument("--lr", type=float, default=0.01, help="dsgps/dss lr")
     p.add_argument("--lr_deq", type=float, default=0.01)
     p.add_argument("--sched_step_deq", type=float, default=0.5)
     p.add_argument("--lr_ae", type=float, default=0.05)
@@ -69,6 +76,19 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--broyden_ls", action="store_true",
                    help="Armijo line search on each Broyden step "
                         "(reference broyden(..., ls=True))")
+    # unrolled models (dsgps/dss)
+    p.add_argument("--k", type=int, default=30)
+    p.add_argument("--alpha", type=float, default=1e-3)
+    p.add_argument("--gamma", type=float, default=0.9)
+    p.add_argument("--enc_loss_mode", type=str, default="",
+                   choices=["", "freeze", "detach"],
+                   help="dsgps only: override the per-variant enc/autoenc "
+                        "loss semantics (dirichlet reference: freeze, mixed "
+                        "reference: detach)")
+    p.add_argument("--neumann_init_scale", type=float, default=1.0,
+                   help="mixed dsgps: scale update_neumann's output layer "
+                        "at init (1.0 = reference Xavier; about 0.1 starts "
+                        "the ungated Neumann recurrence contractive)")
     # devices and options of paths not yet ported (refused unless default)
     p.add_argument("--num_devices", type=int, default=1)
     p.add_argument("--lowrank_bf16", action="store_true")
@@ -91,7 +111,6 @@ def get_parser() -> argparse.ArgumentParser:
 def refuse_unported(p: argparse.ArgumentParser, args) -> None:
     """``p.error`` on any flag value whose path the port does not have."""
     unported = [
-        (args.family != "psignn", f"--family {args.family}"),
         (args.solver in ("newton", "newton_krylov"),
          f"--solver {args.solver}"),
         (args.num_devices != 1, f"--num_devices {args.num_devices}"),
@@ -103,6 +122,35 @@ def refuse_unported(p: argparse.ArgumentParser, args) -> None:
     bad = [name for cond, name in unported if cond]
     if bad:
         p.error(f"not yet ported: {', '.join(bad)}")
+    if args.family == "dss" and args.variant != "dirichlet":
+        p.error("--family dss has a Dirichlet variant only")
+
+
+def gradient_clip(args) -> float:
+    """``--gradient_clip``, or the family's canonical value when it is not
+    given (launch_slurm.sh / launch.sh): 0.1 for Ψ-GNN, 0.01 for DS-GPS
+    and DSS."""
+    if args.gradient_clip is not None:
+        return args.gradient_clip
+    return 0.1 if args.family == "psignn" else 0.01
+
+
+def build_model_cfg(args):
+    """The model config of the family's flags (JAX cli/main.py:126-142)."""
+    from ..models import DsgpsConfig, DssConfig, PsignnConfig
+    if args.family == "psignn":
+        return PsignnConfig(latent_dim=args.latent_dim,
+                            n_layers=args.n_layers, bc_mode=args.variant,
+                            solver=args.solver, fw_tol=args.fw_tol,
+                            fw_thres=args.fw_thres, bw_tol=args.bw_tol,
+                            bw_thres=args.bw_thres, ls=args.broyden_ls)
+    if args.family == "dsgps":
+        return DsgpsConfig(latent_dim=args.latent_dim, k=args.k,
+                           gamma=args.gamma, bc_mode=args.variant,
+                           neumann_init_scale=args.neumann_init_scale,
+                           enc_loss_override=args.enc_loss_mode)
+    return DssConfig(latent_dim=args.latent_dim, k=args.k, alpha=args.alpha,
+                     gamma=args.gamma)
 
 
 RUN_OUTPUTS = ("ckpt", "logs")
@@ -128,32 +176,27 @@ def main(argv=None):
     refuse_unported(p, args)
 
     from ..data.reader import GraphLoader, load_dataset, split_dataset
-    from ..models.psignn import PsignnConfig
     from ..train import Trainer, TrainConfig
 
     if not args.resume:
         clear_results(p, args.path_results)
     os.makedirs(args.path_results, exist_ok=True)
 
-    samples = load_dataset(args.path_dataset, variant=args.variant,
-                           stats=args.stats)
-    train, val, _ = split_dataset(samples, variant=args.variant,
-                                  seed=args.seed)
+    samples = load_dataset(args.path_dataset, family=args.family,
+                           variant=args.variant, stats=args.stats)
+    train, val, _ = split_dataset(samples, family=args.family,
+                                  variant=args.variant, seed=args.seed)
     loader_train = GraphLoader(train, batch_size=args.batch_size,
                                shuffle=True, seed=args.seed,
                                device=args.device)
     loader_val = GraphLoader(val, batch_size=args.batch_size,
                              device=args.device)
-    model_cfg = PsignnConfig(latent_dim=args.latent_dim,
-                             n_layers=args.n_layers, bc_mode=args.variant,
-                             solver=args.solver, fw_tol=args.fw_tol,
-                             fw_thres=args.fw_thres, bw_tol=args.bw_tol,
-                             bw_thres=args.bw_thres, ls=args.broyden_ls)
     cfg = TrainConfig(
-        model_cfg=model_cfg, max_epochs=args.max_epochs,
-        lr_deq=args.lr_deq, lr_ae=args.lr_ae,
-        sched_step_deq=args.sched_step_deq, sched_step_ae=args.sched_step_ae,
-        gradient_clip=args.gradient_clip, jac_weight=args.jac_weight,
+        family=args.family, model_cfg=build_model_cfg(args),
+        max_epochs=args.max_epochs, lr=args.lr, lr_deq=args.lr_deq,
+        lr_ae=args.lr_ae, sched_step_deq=args.sched_step_deq,
+        sched_step_ae=args.sched_step_ae,
+        gradient_clip=gradient_clip(args), jac_weight=args.jac_weight,
         min_loss_save=args.min_loss_save, path_results=args.path_results,
         seed=args.seed, val_sradius=bool(args.val_sradius),
         spike_guard=args.spike_guard, spike_factor=args.spike_factor,

@@ -5,8 +5,10 @@ Port of ``psignn_tpu/data/generate.py``, in the reference's format
 (A_sparse_matrix, b_matrix, sol, prb_data, tags, coordinates, distance),
 an eighth (unit_normal_vector) in the mixed variant, and a
 ``dataset_info.csv``.  The same seed draws the same numbers in the same
-order as the JAX package's factory, so both write the same dataset.  The
-DSS encoding (``add_dss_variable``) is not ported yet.
+order as the JAX package's factory, so both write the same dataset.  A
+Dirichlet dataset also gets DSS's encoding (``add_dss_variable``:
+``A_prime.npy``, ``b_prime.npy`` and four more lines of
+``dataset_info.csv``).
 
     python -m psignn_tpu_torch.data.generate --path_data data/ \\
         --n_mesh 200 --n_samples 50 [--variant mixed]
@@ -22,6 +24,7 @@ import numpy as np
 
 from .fem import solve_poisson, solve_poisson_mixed
 from .meshgen import blob_mesh, mixed_blob_mesh
+from .reader import dss_system
 
 KEYS = ("A_sparse_matrix", "b_matrix", "sol", "prb_data", "tags",
         "coordinates", "distance")
@@ -56,10 +59,7 @@ def generate_data(path_data: str, n_mesh: int = 200, n_samples: int = 50,
 
     os.makedirs(path_data, exist_ok=True)
     for k, v in lists.items():
-        arr = np.empty(len(v), dtype=object)
-        for i, item in enumerate(v):
-            arr[i] = item
-        np.save(os.path.join(path_data, f"{k}.npy"), arr, allow_pickle=True)
+        _save_objects(path_data, k, v)
 
     _write_info(path_data, lists, n_mesh, n_samples)
     return lists
@@ -83,6 +83,34 @@ def _write_info(path_data, lists, n_mesh, n_samples):
         f.write("Max number of nodes : %d\n" % int(np.max(seq_nodes)))
 
 
+def _save_objects(path_data: str, name: str, items) -> None:
+    arr = np.empty(len(items), dtype=object)
+    for i, item in enumerate(items):
+        arr[i] = item
+    np.save(os.path.join(path_data, f"{name}.npy"), arr, allow_pickle=True)
+
+
+def add_dss_variable(path_data: str) -> None:
+    """DSS's encoded system of every sample of a Dirichlet dataset
+    (generate_data.py:100-143): ``A_prime.npy`` (A without its diagonal)
+    and ``b_prime.npy`` (``reader.dss_system``), and their statistics
+    appended to ``dataset_info.csv``."""
+    list_a = np.load(os.path.join(path_data, "A_sparse_matrix.npy"),
+                     allow_pickle=True)
+    list_b = np.load(os.path.join(path_data, "b_matrix.npy"),
+                     allow_pickle=True)
+    a_prime, b_prime = zip(*(dss_system(a, b) for a, b in zip(list_a, list_b)))
+    _save_objects(path_data, "b_prime", b_prime)
+    _save_objects(path_data, "A_prime", a_prime)
+    with open(os.path.join(path_data, "dataset_info.csv"), "a") as f:
+        a = np.hstack([m.data for m in a_prime])
+        bp = np.vstack(b_prime)
+        f.write("Mean of a_ij : %s\n" % np.around(a.mean(), 4))
+        f.write("Std of a_ij : %s\n" % np.around(a.std(), 4))
+        f.write("Mean of b_prime : %s\n" % list(np.around(bp.mean(0), 4)))
+        f.write("Std of b_prime : %s\n" % list(np.around(bp.std(0), 4)))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="psignn_tpu_torch dataset factory")
     p.add_argument("--path_data", type=str, default="data/")
@@ -96,6 +124,8 @@ def main(argv=None):
     args = p.parse_args(argv)
     generate_data(args.path_data, args.n_mesh, args.n_samples, args.radius,
                   args.hsize, seed=args.seed, variant=args.variant)
+    if args.variant == "dirichlet":
+        add_dss_variable(args.path_data)
 
 
 if __name__ == "__main__":

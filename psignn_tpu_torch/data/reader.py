@@ -1,15 +1,24 @@
-"""Datasets and FEM samples → Ψ-GNN graph samples and batches.
+"""Datasets and FEM samples → graph samples and batches of all three model
+families.
 
-Port of ``psignn_tpu/data/reader.py`` for the Ψ-GNN family, Dirichlet and
-mixed variants: ``REF_STATS``, ``psignn_sample_from_fem``, ``load_dataset``
-of a reference-format ``.npy`` directory, the 60/20/20 ``split_dataset``
-and a ``GraphLoader`` of concatenated ``Graph`` batches.  The mixed
-variant adds the normalised ``unit_normal_vector`` and 3-column one-hot
-``tags``, and its split is shuffled by ``np.random.RandomState(seed)`` as
-the JAX package's is.  The port needs no padding caps (PyTorch runs
-eagerly), and the loader keeps the JAX loader's shuffle,
-``np.random.RandomState(seed + epoch)``, so both packages see the same
-batches.  The DSS sample form and the DS-GPS family are not ported yet.
+Port of ``psignn_tpu/data/reader.py``: ``REF_STATS``,
+``psignn_sample_from_fem``, ``dss_sample_from_fem``, ``load_dataset`` of a
+reference-format ``.npy`` directory, the 60/20/20 ``split_dataset`` and a
+``GraphLoader`` of concatenated ``Graph`` batches.
+
+* ``family='psignn'|'dsgps'``: the full system A (diagonal included) with
+  x/b/sol/prb_data/tags/pos/edge_attr/a_ij; the mixed variant adds the
+  normalised ``unit_normal_vector`` and 3-column one-hot ``tags``, and its
+  split is shuffled by ``np.random.RandomState(seed)`` as the JAX
+  package's is.
+* ``family='dss'`` (Dirichlet only): the off-diagonal system A′ and the
+  BC-encoded b′ of ``dss_system``, with the reference reader's quirks
+  kept: ``x = sol``, ``b = 0``, two zero columns of ``prb_data``, zero
+  ``edge_attr``; its split is ordered train | test | val.
+
+The port needs no padding caps (PyTorch runs eagerly), and the loader
+keeps the JAX loader's shuffle, ``np.random.RandomState(seed + epoch)``, so
+both packages see the same batches.
 """
 
 from __future__ import annotations
@@ -83,6 +92,71 @@ def _reference_stats(variant: str = "dirichlet") -> Dict[str, np.ndarray]:
     return {k: np.array(v) for k, v in REF_STATS[(variant, "psignn")].items()}
 
 
+def _dss_reference_stats() -> Dict[str, object]:
+    # the a_ij statistics stay Python floats, so that (v − mean) / std is
+    # computed in v's f32 as the JAX reader computes it
+    st = REF_STATS[("dirichlet", "dss")]
+    return dict(aij_mean=st["aij_mean"], aij_std=st["aij_std"],
+                bprime_mean=np.array(st["bprime_mean"]),
+                bprime_std=np.array(st["bprime_std"]))
+
+
+def dss_system(A, b) -> tuple:
+    """(A′, b′) of DSS's BC encoding (reference ``generate_data.py:100-143``).
+
+    The Dirichlet rows are the rows of A holding an entry exactly 1.  A′ is
+    A without its diagonal, as CSR with sorted indices and no stored zeros;
+    b′ = [b·(1−d), d, b·d] per node, d the Dirichlet flag, in b's precision
+    or wider.  Built sparsely: the JAX package goes through a dense copy of
+    A (N² · 8 bytes), and gets the same arrays."""
+    rows, cols, vals = sp.find(A)
+    dirichlet = np.unique(rows[vals == 1])
+    off = rows != cols
+    a_prime = sp.csr_matrix((vals[off], (rows[off], cols[off])),
+                            shape=A.shape)
+    a_prime.sort_indices()
+    b = np.asarray(b).reshape(-1)
+    bp = np.c_[b, np.zeros(len(b)), np.zeros(len(b))]
+    bp[dirichlet, 2] = bp[dirichlet, 0]
+    bp[dirichlet, 1] = 1.0
+    bp[dirichlet, 0] = 0.0
+    return a_prime, bp
+
+
+def _dss_sample(a_prime, b_prime, sol, tags, coordinates, stats, dtype
+                ) -> GraphSample:
+    """A DSS graph sample: COO edges over the nonzeros of A′, the 1-wide
+    normalised ``a_ij_norm`` they carry into message passing, b′ and its
+    normalised form (dss reader.py:89-93)."""
+    c = sp.find(a_prime)
+    v = c[2].astype(dtype)
+    sol = np.asarray(sol, dtype).reshape(-1, 1)
+    bp = np.asarray(b_prime, dtype)
+    return dict(
+        x=sol, b=np.zeros_like(sol), sol=sol,
+        prb_data=np.zeros((len(sol), 2), dtype),
+        tags=np.asarray(tags, dtype).reshape(len(sol), -1),
+        pos=np.asarray(coordinates, dtype),
+        senders=c[0].astype(np.int32), receivers=c[1].astype(np.int32),
+        a_ij=v.reshape(-1, 1),
+        a_ij_norm=((v - stats["aij_mean"]) / stats["aij_std"]
+                   ).reshape(-1, 1).astype(dtype),
+        b_prime=bp,
+        b_prime_norm=((bp - stats["bprime_mean"])
+                      / stats["bprime_std"]).astype(dtype),
+        edge_attr=np.zeros((len(c[0]), 3), dtype))
+
+
+def dss_sample_from_fem(s: Dict[str, np.ndarray],
+                        dtype=np.float32) -> GraphSample:
+    """One ``data.fem.solve_poisson`` output → a DSS graph sample (A′ and
+    b′ of ``dss_system`` from the f32 right-hand side), normalised with the
+    reference statistics."""
+    a_prime, bp = dss_system(s["A"], np.asarray(s["b"], dtype))
+    return _dss_sample(a_prime, bp, s["sol"], s["tags"], s["coordinates"],
+                       _dss_reference_stats(), dtype)
+
+
 def psignn_sample_from_fem(s: Dict[str, np.ndarray],
                            variant: str = "dirichlet",
                            dtype=np.float32) -> GraphSample:
@@ -108,10 +182,14 @@ def load_dataset(path_data: str, family: str = "psignn",
 
     ``stats='reference'`` normalises with ``REF_STATS``; ``'auto'`` with
     the mean and std of the loaded data (edge offsets stay centred).  The
-    mixed variant also reads ``unit_normal_vector.npy``."""
+    mixed variant also reads ``unit_normal_vector.npy``; the DSS family
+    reads ``A_prime.npy`` and ``b_prime.npy`` (``generate.add_dss_variable``)
+    instead of the full system."""
     _check(family, variant)
     if stats not in ("reference", "auto"):
         raise ValueError(f"stats must be 'reference' or 'auto', not {stats!r}")
+    if family == "dss":
+        return _load_dss(path_data, stats, dtype)
     keys = ["A_sparse_matrix", "b_matrix", "sol", "prb_data", "tags",
             "coordinates", "distance"]
     if variant == "mixed":
@@ -135,12 +213,32 @@ def load_dataset(path_data: str, family: str = "psignn",
             for i in range(len(arrays["A_sparse_matrix"]))]
 
 
+def _load_dss(path_data: str, stats: str, dtype) -> List[GraphSample]:
+    arrays = {k: _load(path_data, k) for k in
+              ("A_prime", "b_prime", "sol", "tags", "coordinates")}
+    if stats == "reference":
+        st = _dss_reference_stats()
+    else:
+        aij = np.hstack([sp.find(a)[2] for a in arrays["A_prime"]])
+        bp = np.vstack(arrays["b_prime"])
+        st = dict(aij_mean=aij.mean(), aij_std=aij.std(),
+                  bprime_mean=bp.mean(axis=0), bprime_std=bp.std(axis=0))
+    return [_dss_sample(*(arrays[k][i] for k in arrays), stats=st,
+                        dtype=dtype)
+            for i in range(len(arrays["A_prime"]))]
+
+
+FAMILIES = ("psignn", "dsgps", "dss")
+
+
 def _check(family: str, variant: str) -> None:
-    if family != "psignn":
-        raise NotImplementedError(f"family '{family}' is not yet ported")
+    if family not in FAMILIES:
+        raise ValueError(f"family must be one of {FAMILIES}, not {family!r}")
     if variant not in ("dirichlet", "mixed"):
         raise ValueError(f"variant must be 'dirichlet' or 'mixed', "
                          f"not {variant!r}")
+    if family == "dss" and variant != "dirichlet":
+        raise ValueError("the DSS family has a Dirichlet variant only")
 
 
 def split_dataset(samples: Sequence, family: str = "psignn",
@@ -148,7 +246,8 @@ def split_dataset(samples: Sequence, family: str = "psignn",
     """(train, val, test), 60/20/20: ordered [0:.6 | .6:.8 | .8:1] in the
     Dirichlet variant (reader.py:120-121), shuffled first by
     ``np.random.RandomState(seed)`` in the mixed one (mixed reader.py:128-129
-    splits with ``shuffle=True``)."""
+    splits with ``shuffle=True``).  DSS orders train | test | val: its val
+    is the last part and its test the middle one (dss reader.py:97-98)."""
     _check(family, variant)
     n = len(samples)
     idx = np.arange(n)
@@ -158,8 +257,9 @@ def split_dataset(samples: Sequence, family: str = "psignn",
     n_val = int((n - n_test) * 0.25)
     n_train = n - n_test - n_val
     picked = [samples[i] for i in idx]
-    return (picked[:n_train], picked[n_train:n_train + n_val],
-            picked[n_train + n_val:])
+    train, mid, last = (picked[:n_train], picked[n_train:n_train + n_val],
+                        picked[n_train + n_val:])
+    return (train, last, mid) if family == "dss" else (train, mid, last)
 
 
 @dataclasses.dataclass

@@ -1,10 +1,13 @@
 """Per-graph error metrics and the test-set table.
 
 Port of ``errors_batch``, ``evaluate_dataset`` and ``metrics_table``
-(``psignn_tpu/eval/metrics.py``), Ψ-GNN form: for each graph of a batch
-the mean squared residual, the normalised residual ‖Au−b‖/‖b‖, the MSE
-against the FEM solution, the relative L2 error ‖u−sol‖/‖sol‖ and the MSE
-on Dirichlet nodes; then the dataset's means and stds in a printed table.
+(``psignn_tpu/eval/metrics.py``): for each graph of a batch the mean
+squared residual, the normalised residual ‖Au−b‖/‖b‖, the MSE against the
+FEM solution, the relative L2 error ‖u−sol‖/‖sol‖ and the MSE on Dirichlet
+nodes; then the dataset's means and stds in a printed table.  A DSS graph
+(one carrying ``b_prime``) takes the BC-encoded residual over A′ and
+normalises it by ‖B0 + B2‖, as the reference's DSS branch does
+(tests/test_func_dirichlet.py:26-48, 89-91).
 """
 
 from __future__ import annotations
@@ -15,16 +18,21 @@ import numpy as np
 import torch
 
 from ..graphs import Graph
-from ..ops import per_graph_sum, spmv
+from ..ops import dss_residual_vector, per_graph_sum, spmv
 
 
 def errors_batch(u: torch.Tensor, graph: Graph) -> Dict[str, torch.Tensor]:
     """(G,) per-graph metrics: res, res_norm, mse, rel, mse_bound."""
-    residual = spmv(graph, u) - graph.b
+    if graph.b_prime is not None:
+        residual = dss_residual_vector(u, graph)
+        rhs = graph.b_prime[:, 0:1] + graph.b_prime[:, 2:3]
+    else:
+        residual = spmv(graph, u) - graph.b
+        rhs = graph.b
     counts = graph.n_nodes.to(u.dtype)
 
     res_sq = per_graph_sum(torch.square(residual)[:, 0], graph)
-    b_sq = per_graph_sum(torch.square(graph.b)[:, 0], graph)
+    b_sq = per_graph_sum(torch.square(rhs)[:, 0], graph)
     err = torch.square(u - graph.sol)[:, 0]
     err_sq = per_graph_sum(err, graph)
     sol_sq = per_graph_sum(torch.square(graph.sol)[:, 0], graph)

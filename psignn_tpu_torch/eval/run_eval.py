@@ -1,5 +1,5 @@
 """Checkpoint evaluation CLI: the test-split table and the growing-geometry
-sweep of a Ψ-GNN checkpoint on the GPU.
+sweep of a Ψ-GNN, DS-GPS or DSS checkpoint on the GPU.
 
 Port of ``psignn_tpu/eval/run_eval.py`` (``load_predictor``, the test-split
 table and ``--sweep``)::
@@ -8,15 +8,18 @@ table and ``--sweep``)::
         --ckpt results/psignn_mixed/ckpt/best_model.ckpt --variant mixed \\
         --path_dataset data/mixed --out results/eval/
     python -m psignn_tpu_torch.eval.run_eval \\
-        --ckpt results/psignn_dirichlet/ckpt/best_model.ckpt --sweep
+        --ckpt results/dss_dirichlet/ckpt/best_model.ckpt --sweep
 
-``--path_dataset`` asks for the table: the dataset is loaded, split as the
-trainer splits it at its default seed (``split_dataset``), and its test
-part is answered in batches of ``--batch_size``; the table is printed
-and, with ``--out``, written to ``test_metrics.json``.  The JAX CLI reads ``data/`` unless told otherwise;
-here the table runs only when a dataset is named.  ``--sweep`` builds
-Dirichlet samples (2-column problem data, no normals), so it takes a
-Dirichlet checkpoint only.
+The checkpoint's ``family`` picks the model.  ``--path_dataset`` asks for
+the table: the dataset is loaded in the family's sample form (DSS reads
+``A_prime``/``b_prime``), split as the trainer splits it at its default
+seed (``split_dataset``, which orders DSS's parts train | test | val), and
+its test part is answered in batches of ``--batch_size``; the table is
+printed and, with ``--out``, written to ``test_metrics.json``.  The JAX
+CLI reads ``data/`` unless told otherwise; here the table runs only when a
+dataset is named.  ``--sweep`` builds Dirichlet samples (2-column problem
+data, no normals; DSS's A′ form as well for a DSS checkpoint), so it takes
+a Dirichlet checkpoint only.
 """
 
 from __future__ import annotations
@@ -29,19 +32,22 @@ from .. import resolve_device
 
 
 def load_predictor(ckpt_path: str, device=None, overrides=None):
-    """(predict_fn, family, cfg, model) from a Ψ-GNN checkpoint, Dirichlet
-    or mixed by its ``bc_mode``, the JAX package's or one the port trained;
-    ``predict_fn(graph)`` returns ``psignn_inference``'s tuple."""
-    from ..models import psignn_inference
-    from ..weights import load_psignn_checkpoint
+    """(predict_fn, family, cfg, model) from a checkpoint of any family,
+    Dirichlet or mixed, the JAX package's or one the port trained;
+    ``predict_fn(graph)`` returns ``psignn_inference``'s tuple (Ψ-GNN) or
+    the solution u (DS-GPS, DSS)."""
+    from ..models import dsgps_inference, dss_inference, psignn_inference
+    from ..weights import load_model_checkpoint
 
-    model, cfg = load_psignn_checkpoint(ckpt_path, resolve_device(device),
-                                        overrides)
+    family, model, cfg = load_model_checkpoint(
+        ckpt_path, resolve_device(device), overrides)
+    infer = {"psignn": psignn_inference, "dsgps": dsgps_inference,
+             "dss": dss_inference}[family]
 
     def predict(graph):
-        return psignn_inference(model, graph, cfg)
+        return infer(model, graph, cfg)
 
-    return predict, "psignn", cfg, model
+    return predict, family, cfg, model
 
 
 def main(argv=None):
@@ -67,23 +73,28 @@ def main(argv=None):
                 "both")
 
     predict, family, cfg, _ = load_predictor(args.ckpt, args.device)
-    if args.path_dataset is not None and cfg.bc_mode != args.variant:
-        p.error(f"the checkpoint is a {cfg.bc_mode} model; its test split "
-                f"needs --variant {cfg.bc_mode}")
-    if args.sweep and cfg.bc_mode != "dirichlet":
+    mode = getattr(cfg, "bc_mode", "dirichlet")     # DSS: Dirichlet only
+    if args.path_dataset is not None and mode != args.variant:
+        p.error(f"the checkpoint is a {mode} model; its test split "
+                f"needs --variant {mode}")
+    if args.sweep and mode != "dirichlet":
         p.error(f"--sweep builds Dirichlet samples (2-column problem data, "
-                f"no normals); a {cfg.bc_mode} checkpoint cannot answer it")
+                f"no normals); a {mode} checkpoint cannot answer it")
+
+    def u_only(graph):
+        out = predict(graph)
+        return out[0] if isinstance(out, tuple) else out
 
     if args.path_dataset is not None:
         from ..data.reader import GraphLoader, load_dataset, split_dataset
         from .metrics import evaluate_dataset
         _, _, test = split_dataset(
-            load_dataset(args.path_dataset, variant=args.variant),
-            variant=args.variant)
+            load_dataset(args.path_dataset, family=family,
+                         variant=args.variant),
+            family=family, variant=args.variant)
         loader = GraphLoader(test, batch_size=args.batch_size,
                              device=args.device)
-        results = evaluate_dataset(lambda g: predict(g)[0], loader,
-                                   name=family)
+        results = evaluate_dataset(u_only, loader, name=family)
         if args.out:
             os.makedirs(args.out, exist_ok=True)
             with open(os.path.join(args.out, "test_metrics.json"), "w") as f:
@@ -93,7 +104,8 @@ def main(argv=None):
         from .sweep import growing_geometry_sweep
         summary = growing_geometry_sweep(
             {family: predict}, radii=args.radii, n_meshes=args.n_meshes,
-            out_dir=args.out or None, device=args.device)
+            out_dir=args.out or None, device=args.device,
+            families=("psignn", "dss") if family == "dss" else ("psignn",))
         print(json.dumps(summary, indent=2, default=float))
 
 

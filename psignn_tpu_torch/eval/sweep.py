@@ -1,10 +1,13 @@
 """Growing-geometry sweep — the headline generalisation experiment.
 
 Port of ``build_data``, ``test_sample`` and ``growing_geometry_sweep``
-(``psignn_tpu/eval/sweep.py``), Ψ-GNN family only: for each radius, fresh
-blob meshes are FEM-solved for ground truth and every predictor is run and
-timed on them; per-radius means (and stds) of the metrics come back, and
-optionally go to ``{name}_results.csv``.
+(``psignn_tpu/eval/sweep.py``): for each radius, fresh blob meshes are
+FEM-solved for ground truth and every predictor is run and timed on them;
+per-radius means (and stds) of the metrics come back, and optionally go
+to ``{name}_results.csv``.  The predictor named ``dss`` answers the DSS
+form of each mesh's sample (A′, b′), every other one the Ψ-GNN form, which
+DS-GPS shares; both forms come from the same FEM solve, so asking for the
+DSS form draws no other random numbers.
 """
 
 from __future__ import annotations
@@ -19,14 +22,20 @@ import torch
 from .. import resolve_device
 from ..data.fem import solve_poisson
 from ..data.meshgen import blob_mesh
-from ..data.reader import psignn_sample_from_fem
+from ..data.reader import dss_sample_from_fem, psignn_sample_from_fem
 from ..graphs import Graph, batch_graphs
 from .metrics import errors_batch
 
+SAMPLE_FORMS = {"psignn": psignn_sample_from_fem, "dss": dss_sample_from_fem}
 
-def build_data(mesh, radius: float, rng=None) -> Dict[str, dict]:
-    """FEM-solve one mesh; ``{"psignn": graph sample}``."""
-    return {"psignn": psignn_sample_from_fem(solve_poisson(mesh, radius, rng))}
+
+def build_data(mesh, radius: float, rng=None,
+               families: Sequence[str] = ("psignn", "dss")
+               ) -> Dict[str, dict]:
+    """FEM-solve one mesh; ``{form: graph sample}`` for each sample form
+    in ``families`` (``psignn``, ``dss``)."""
+    s = solve_poisson(mesh, radius, rng)
+    return {f: SAMPLE_FORMS[f](s) for f in families}
 
 
 def _timed(fn: Callable, graph: Graph):
@@ -49,7 +58,7 @@ def test_sample(predictors: Dict[str, Callable], graphs: Dict[str, Graph],
     prot_break, ...) such as ``psignn_inference``'s."""
     results = {}
     for name, fn in predictors.items():
-        g = graphs["psignn"]
+        g = graphs["dss" if name == "dss" else "psignn"]
         if warmup:
             _timed(fn, g)
         out, dt = _timed(fn, g)
@@ -68,11 +77,13 @@ def growing_geometry_sweep(
         predictors: Dict[str, Callable],
         radii: Sequence[float] = (0.6, 1.0, 2.0, 4.0, 5.0),
         n_meshes=3, hsize: float = 0.08, seed: int = 0,
-        out_dir: Optional[str] = None, device=None, warmup: bool = True
+        out_dir: Optional[str] = None, device=None, warmup: bool = True,
+        families: Sequence[str] = ("psignn", "dss")
         ) -> Dict[str, Dict[float, Dict[str, float]]]:
     """The radius sweep: ``n_meshes`` (an int, or one count per radius)
     fresh meshes per radius, every predictor on every mesh, means per
-    radius.  Graphs go to ``device`` (default: ``default_device()``)."""
+    radius.  ``families`` are the sample forms built for each mesh.
+    Graphs go to ``device`` (default: ``default_device()``)."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     acc: Dict[str, Dict[float, List[Dict[str, float]]]] = {
@@ -85,7 +96,7 @@ def growing_geometry_sweep(
     for radius in radii:
         for _ in range(counts[radius]):
             mesh = blob_mesh(radius=radius, hsize=hsize, rng=rng)
-            data = build_data(mesh, radius, rng)
+            data = build_data(mesh, radius, rng, families)
             graphs = {k: batch_graphs([v], device=device)
                       for k, v in data.items()}
             for name, m in test_sample(predictors, graphs, warmup).items():

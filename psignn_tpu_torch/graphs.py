@@ -8,7 +8,11 @@ reads (``fnode_mask``, ``dirichlet_mask``, and ``neumann_mask`` in the
 mixed variant) are built once per batch.  The widths of ``tags`` and
 ``prb_data`` come from the samples: 1 and 2 in the Dirichlet variant, a
 3-column one-hot [interior, dirichlet, neumann] and 3 in the mixed one,
-which also carries ``unit_normal_vector``.
+which also carries ``unit_normal_vector``.  A DSS graph holds the
+off-diagonal system A′ (its ``a_ij``), the BC-encoded right-hand side
+``b_prime`` and their normalised forms; its message passing reads the 1-wide
+``a_ij_norm`` where the other families read the 3-wide ``edge_attr``
+(JAX ``graphs.py:220-223``).
 
 Conventions as in the JAX package: ``senders[e], receivers[e]`` are the
 COO row/col of the e-th nonzero of A, so ``A[senders, receivers] = a_ij``.
@@ -55,6 +59,10 @@ class Graph:
     # --- mixed variant only ---
     neumann_mask: Optional[torch.Tensor] = None        # (N, 1) float
     unit_normal_vector: Optional[torch.Tensor] = None  # (N, 2) normalised
+    # --- DSS only ---
+    a_ij_norm: Optional[torch.Tensor] = None     # (E, 1) normalised A′[i, j]
+    b_prime: Optional[torch.Tensor] = None       # (N, 3) [B0, B1, B2]
+    b_prime_norm: Optional[torch.Tensor] = None  # (N, 3) normalised
 
     @property
     def total_nodes(self) -> int:
@@ -69,6 +77,11 @@ class Graph:
     @property
     def device(self) -> torch.device:
         return self.x.device
+
+
+# widths of the optional per-sample fields (mixed normals, DSS system)
+OPTIONAL_WIDTHS = {"unit_normal_vector": 2, "a_ij_norm": 1, "b_prime": 3,
+                   "b_prime_norm": 3}
 
 
 def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
@@ -97,6 +110,9 @@ def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
 
     tags = cat("tags", width("tags"))
     edge_attr = cat("edge_attr", 3)
+    # the optional fields every sample carries
+    optional = {k: cat(k, w) for k, w in OPTIONAL_WIDTHS.items()
+                if all(k in s for s in samples)}
     # Dirichlet variant: tags == 1; mixed: one-hot column 1 (column 0 is
     # the interior flag there)
     dcol = 0 if tags.shape[1] == 1 else 1
@@ -104,12 +120,12 @@ def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    mixed = {}
+    extra = {k: t(v) for k, v in optional.items()}
     if tags.shape[1] == 3:
-        mixed["neumann_mask"] = t((tags[:, 2:3] == 1).astype(dtype))
-    if all("unit_normal_vector" in s for s in samples):
-        mixed["unit_normal_vector"] = t(cat("unit_normal_vector", 2))
-    mp_to = pack_csr(senders, receivers, edge_attr, total, "to", device=device)
+        extra["neumann_mask"] = t((tags[:, 2:3] == 1).astype(dtype))
+    mp_to = pack_csr(senders, receivers,
+                     optional.get("a_ij_norm", edge_attr), total, "to",
+                     device=device)
     return Graph(
         x=t(cat("x", 1)), b=t(cat("b", 1)), sol=t(cat("sol", 1)),
         prb_data=t(cat("prb_data", width("prb_data"))), tags=t(tags),
@@ -120,4 +136,4 @@ def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
         a_ij=t(cat("a_ij", 1)), edge_attr=t(edge_attr),
         n_nodes=t(n_nodes), n_edges=t(n_edges),
         mp_to=mp_to, mp_from=mp_to.reverse(), num_graphs=len(samples),
-        **mixed)
+        **extra)

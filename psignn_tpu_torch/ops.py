@@ -2,12 +2,16 @@
 
 Port of ``psignn_tpu/ops.py`` (``message_passing``, ``spmv``,
 ``masked_mean``, ``mse_masked``, ``residual_loss``, ``residual_per_graph``,
-``mse_per_graph``).  Reference semantics:
+``mse_per_graph``, the stacked per-iteration losses of the unrolled models
+and DSS's BC-encoded residual).  Reference semantics:
 
 * ``Phi_to`` aggregates at receivers with x_i = receiver features,
   ``Phi_from`` at senders with x_i = sender features;
 * message passing drops self-loops, the SpMV residual keeps the diagonal;
-* means divide by true node counts.
+* means divide by true node counts;
+* DSS's residual is the BC-encoded form over the off-diagonal system A′
+  (``a_ij`` of a DSS graph): ``(1−B1)(−B0) + B1(u−B2) + Σ_j a′_ij (u_j −
+  u_i)`` with ``b_prime = [B0, B1, B2]``.
 """
 
 from __future__ import annotations
@@ -84,3 +88,57 @@ def mse_per_graph(a: torch.Tensor, b: torch.Tensor, graph: Graph
                   ) -> torch.Tensor:
     """(G,) per-graph mean squared difference."""
     return _per_graph_mean(torch.square(a - b)[:, 0], graph)
+
+
+def mse_masked_stacked(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor
+                       ) -> torch.Tensor:
+    """(k,) MSE of each leading slice of ``a`` (k, N, w) against ``b``
+    (N, w) over the rows where ``mask`` (N,) is set."""
+    m = mask.to(a.dtype)[:, None]
+    num = torch.sum(torch.square(a - b[None]) * m[None], dim=(1, 2))
+    return num / (torch.sum(m) * a.shape[-1])
+
+
+def _stacked(U: torch.Tensor) -> torch.Tensor:
+    """(k, N, 1) iterates as the (N, k) channels of one sweep."""
+    return U[..., 0].T
+
+
+def _per_iteration_mse(r: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """(k,) mean square over the nodes of each column of ``r`` (N, k)."""
+    return mse_masked_stacked(r.T[..., None], torch.zeros_like(r[:, :1]),
+                              graph.fnode_mask[:, 0] > 0)
+
+
+def residual_loss_stacked(U: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """(k,) mean((A u_t − b)²) of the k iterates ``U`` (k, N, 1) of an
+    unrolled model, as the k channels of one SpMV."""
+    return _per_iteration_mse(spmv(graph, _stacked(U)) - graph.b, graph)
+
+
+def _flux(graph: Graph, u: torch.Tensor) -> torch.Tensor:
+    """(N, k) Σ_j a′_ij (u_j − u_i) over the edges of A′."""
+    vals = graph.a_ij * (u[graph.receivers] - u[graph.senders])
+    out = torch.zeros((graph.total_nodes, u.shape[1]), dtype=u.dtype,
+                      device=u.device)
+    return out.index_add_(0, graph.senders, vals)
+
+
+def dss_residual_vector(u: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """(N, k) BC-encoded residual of ``u`` (N, k): interior rows (B1 = 0)
+    give −B0 + Σ_j a′_ij (u_j − u_i), Dirichlet rows (B1 = 1, no edges in
+    A′) give u − B2."""
+    b0, b1, b2 = graph.b_prime.split(1, dim=1)
+    return (1.0 - b1) * (-b0) + b1 * (u - b2) + _flux(graph, u)
+
+
+def dss_residual_loss(u: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """Mean square of the BC-encoded residual over the nodes."""
+    r = dss_residual_vector(u, graph)
+    return mse_masked(r, torch.zeros_like(r), graph.fnode_mask[:, 0] > 0)
+
+
+def dss_residual_loss_stacked(U: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """(k,) BC-encoded residual losses of the iterates ``U`` (k, N, 1) in
+    one sweep with k channels."""
+    return _per_iteration_mse(dss_residual_vector(_stacked(U), graph), graph)

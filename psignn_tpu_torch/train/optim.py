@@ -2,8 +2,9 @@
 
 Port of ``psignn_tpu/train/optim.py``:
 
-* two Adams, one over the DEQ update function and one over the
-  autoencoder (``dirichlet/psignn/training_class.py:52-58``).
+* Ψ-GNN: two Adams, one over the DEQ update function and one over the
+  autoencoder (``dirichlet/psignn/training_class.py:52-58``); DS-GPS and
+  DSS: one Adam over every parameter (dsgps/training_class.py:49-51).
   ``torch.optim.Adam`` with eps 1e-8 is the JAX package's Adam
   (``optax.scale_by_adam``, bias-corrected, then ``p - lr·u``);
 * the global-norm clip over ALL parameters jointly before both steps
@@ -32,6 +33,11 @@ def make_optimizers(model, lr_deq: float, lr_ae: float
     return (torch.optim.Adam(model.function.parameters(), lr=lr_deq,
                              eps=ADAM_EPS),
             torch.optim.Adam(ae, lr=lr_ae, eps=ADAM_EPS))
+
+
+def make_adam(model, lr: float) -> torch.optim.Adam:
+    """One Adam over every parameter of ``model`` (DS-GPS, DSS)."""
+    return torch.optim.Adam(model.parameters(), lr=lr, eps=ADAM_EPS)
 
 
 def apply_gradients(params: Iterable[torch.nn.Parameter],

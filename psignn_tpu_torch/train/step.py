@@ -1,9 +1,13 @@
-"""One Ψ-GNN training step: forward with losses, implicit backward, joint
-clip, dual Adam.
+"""One training step: forward with losses, backward, joint clip, Adam.
 
-Port of the psignn step of ``psignn_tpu/train/trainer.py:262-287``, which
-``bench.py:156-173`` also runs: loss = residual + jac_weight·jacobian +
-encoder + autoencoder (training_class.py:156-159).
+Port of the two steps of ``psignn_tpu/train/trainer.py``:
+
+* ``train_step`` (Ψ-GNN, ``:262-287``, which ``bench.py:156-173`` also
+  runs): loss = residual + jac_weight·jacobian + encoder + autoencoder
+  (training_class.py:156-159), the implicit backward, the dual Adam;
+* ``unrolled_train_step`` (DS-GPS and DSS, ``:288-296``): loss = the
+  model's ``train_loss``, backpropagated through the k-step unroll, one
+  Adam.
 """
 
 from __future__ import annotations
@@ -14,16 +18,27 @@ import torch
 
 from ..deq import SolveStats
 from ..graphs import Graph
+from ..models.dsgps import DsgpsConfig, dsgps_forward
+from ..models.dss import dss_forward
 from ..models.psignn import Psignn, PsignnConfig, psignn_forward
 from .optim import apply_gradients
 
 
 class StepResult(NamedTuple):
     loss: float
-    losses: Dict[str, float]        # the nine entries of psignn_forward
+    losses: Dict[str, float]        # the forward's 0-d loss entries
     grad_norm: float                # global norm before the clip
-    fw: SolveStats                  # forward fixed-point solve
-    bw: Optional[SolveStats]        # adjoint solve of the backward
+    fw: Optional[SolveStats]        # forward fixed-point solve (Ψ-GNN)
+    bw: Optional[SolveStats]        # adjoint solve of the backward (Ψ-GNN)
+
+
+def _host(loss: torch.Tensor, gnorm: torch.Tensor,
+          losses: Dict[str, torch.Tensor]):
+    """(loss, grad norm, {name: value}), all in one host read."""
+    host = torch.stack([loss.detach(), gnorm.to(loss.dtype)]
+                       + [v.detach() for v in losses.values()]).cpu()
+    return (float(host[0]), float(host[1]),
+            dict(zip(losses, host[2:].tolist())))
 
 
 def psignn_loss(losses: Dict[str, torch.Tensor],
@@ -44,9 +59,26 @@ def train_step(model: Psignn, opts: Sequence[torch.optim.Optimizer],
     loss = psignn_loss(out.losses, jac_weight)
     loss.backward()
     gnorm = apply_gradients(model.parameters(), opts, lrs, clip)
-    # one host read for every scalar of the step
-    host = torch.stack([loss.detach(), gnorm.to(loss.dtype)]
-                       + [v.detach() for v in out.losses.values()]).cpu()
-    return StepResult(float(host[0]),
-                      dict(zip(out.losses, host[2:].tolist())),
-                      float(host[1]), out.fw, out.adjoint.stats)
+    loss_f, gnorm_f, scalars = _host(loss, gnorm, out.losses)
+    return StepResult(loss_f, scalars, gnorm_f, out.fw, out.adjoint.stats)
+
+
+def unrolled_forward(model, graph: Graph, cfg):
+    """The training forward of an unrolled family, picked by its config."""
+    forward = dsgps_forward if isinstance(cfg, DsgpsConfig) else dss_forward
+    return forward(model, graph, cfg)
+
+
+def unrolled_train_step(model, opt: torch.optim.Optimizer, graph: Graph,
+                        cfg, lr: float, clip: float) -> StepResult:
+    """One DS-GPS or DSS step on ``graph``: ``train_loss`` backpropagated
+    through the unroll (one backward kernel launch per message passing on
+    the card), the joint clip, one Adam step at ``lr``, one host read."""
+    opt.zero_grad(set_to_none=True)
+    out = unrolled_forward(model, graph, cfg)
+    loss = out.losses["train_loss"]
+    loss.backward()
+    gnorm = apply_gradients(model.parameters(), [opt], [lr], clip)
+    loss_f, gnorm_f, scalars = _host(loss, gnorm, {
+        k: v for k, v in out.losses.items() if v.dim() == 0})
+    return StepResult(loss_f, scalars, gnorm_f, None, None)

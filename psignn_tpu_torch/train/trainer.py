@@ -1,17 +1,22 @@
 """Experiment runner: train and validation epochs, CSV logs, checkpoints.
 
-Port of ``psignn_tpu/train/trainer.py`` for the Ψ-GNN family, Dirichlet
+Port of ``psignn_tpu/train/trainer.py`` for the three families, Dirichlet
 or mixed (the model config's ``bc_mode``, with loaders of that variant), on
 one device with one concatenated batch per step:
 
-* two Adams (update function, autoencoder) with their plateau schedulers
-  (training_class.py:52-58), loss = residual + jac_weight·jacobian +
-  encoder + autoencoder, the joint global-norm clip (``train/step.py``);
-* the LR-floor stop at 1e-7 (training_class.py:291-294);
-* ``train_metrics.csv`` lines at 25/50/75 % of each epoch and at its end,
+* Ψ-GNN: two Adams (update function, autoencoder) with their plateau
+  schedulers (training_class.py:52-58), loss = residual +
+  jac_weight·jacobian + encoder + autoencoder, and the LR-floor stop at
+  1e-7 (training_class.py:291-294);
+* DS-GPS and DSS: one Adam at ``lr`` over every parameter, loss = the
+  model's ``train_loss``, no scheduler and no LR-floor stop
+  (dsgps/training_class.py:49-51, 144);
+* the joint global-norm clip (``train/step.py``);
+* ``train_metrics.csv`` lines at 25/50/75 % of each epoch and at its end
+  (a loss a family does not have reads 0),
   ``forward_iteration.csv`` / ``backward_iteration.csv`` (lowest, nstep of
-  each step's two solves), ``spectral_radius.csv`` from the validation
-  power method, ``model_config.csv``;
+  each Ψ-GNN step's two solves), ``spectral_radius.csv`` from the Ψ-GNN
+  validation power method, ``model_config.csv``;
 * running/best/final checkpoints keyed on the validation residual
   (training_class.py:296-333), ``--spike_guard`` and resume.
 
@@ -31,12 +36,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from .. import resolve_device
-from ..models.psignn import Psignn, PsignnConfig, psignn_forward
-from ..weights import params_from_jax, params_to_jax
+from ..models.psignn import psignn_forward
+from ..weights import FAMILIES
 from .checkpoint import (load_checkpoint, optimizer_state_from_numpy,
                          optimizer_state_to_numpy, save_checkpoint)
-from .optim import PlateauScheduler, make_optimizers
-from .step import psignn_loss, train_step
+from .optim import PlateauScheduler, make_adam, make_optimizers
+from .step import (psignn_loss, train_step, unrolled_forward,
+                   unrolled_train_step)
 
 LOSS_KEYS = ["loss", "residual_loss", "jacobian_loss", "encoder_loss",
              "autoencoder_loss", "mse_loss"]
@@ -44,9 +50,10 @@ LOSS_KEYS = ["loss", "residual_loss", "jacobian_loss", "encoder_loss",
 
 @dataclasses.dataclass
 class TrainConfig:
-    family: str = "psignn"
+    family: str = "psignn"                  # 'psignn' | 'dsgps' | 'dss'
     model_cfg: Any = None
     max_epochs: int = 500
+    lr: float = 0.01                        # dsgps/dss single optimizer
     lr_deq: float = 0.01
     lr_ae: float = 0.05
     sched_step_deq: float = 0.5
@@ -72,10 +79,10 @@ class TrainConfig:
 class Trainer:
 
     def __init__(self, config: TrainConfig, loader_train, loader_val,
-                 model: Optional[Psignn] = None):
-        if config.family != "psignn":
-            raise NotImplementedError(
-                f"family '{config.family}' is not yet ported")
+                 model: Optional[torch.nn.Module] = None):
+        if config.family not in FAMILIES:
+            raise ValueError(f"family must be one of {sorted(FAMILIES)}, "
+                             f"not {config.family!r}")
         if config.data_parallel or config.stacked_batch:
             raise NotImplementedError(
                 "data_parallel and stacked_batch are not yet ported")
@@ -83,7 +90,10 @@ class Trainer:
         self.loader_train = loader_train
         self.loader_val = loader_val
         self.family = config.family
-        self.mc = config.model_cfg or PsignnConfig()
+        self.psignn = config.family == "psignn"
+        model_cls, cfg_cls, self._from_jax, self._to_jax = \
+            FAMILIES[config.family]
+        self.mc = config.model_cfg or cfg_cls()
         self.device = resolve_device(config.device)
 
         self.path_ckpt = os.path.join(config.path_results, "ckpt")
@@ -93,13 +103,20 @@ class Trainer:
         self._init_log_files()
 
         if model is None:
-            model = Psignn(self.mc,
-                           generator=torch.Generator().manual_seed(config.seed),
-                           device=self.device)
+            model = model_cls(
+                self.mc, generator=torch.Generator().manual_seed(config.seed),
+                device=self.device)
         self.model = model
-        self.opts = make_optimizers(model, config.lr_deq, config.lr_ae)
-        self.sched_deq = PlateauScheduler(config.lr_deq, config.sched_step_deq)
-        self.sched_ae = PlateauScheduler(config.lr_ae, config.sched_step_ae)
+        if self.psignn:
+            self.opts = make_optimizers(model, config.lr_deq, config.lr_ae)
+            self.sched_deq = PlateauScheduler(config.lr_deq,
+                                              config.sched_step_deq)
+            self.sched_ae = PlateauScheduler(config.lr_ae,
+                                             config.sched_step_ae)
+        else:
+            self.opts = (make_adam(model, config.lr),)
+        # the optimizers' names in a checkpoint's torch_optim
+        self.opt_keys = ("deq", "ae") if self.psignn else ("adam",)
 
         self.hist_train = {k: [] for k in LOSS_KEYS}
         self.hist_val = {k: [] for k in LOSS_KEYS}
@@ -149,8 +166,9 @@ class Trainer:
         c = self.c
         accum = {k: 0.0 for k in LOSS_KEYS}
         n_batches = len(self.loader_train)
-        lrs = (self.sched_deq.lr * self.lr_scale,
-               self.sched_ae.lr * self.lr_scale)
+        lrs = ((self.sched_deq.lr * self.lr_scale,
+                self.sched_ae.lr * self.lr_scale) if self.psignn
+               else (c.lr * self.lr_scale,))
         marks = {math.ceil(f * n_batches) for f in (0.25, 0.5, 0.75)}
         pending = []          # StepResults since the last log line
 
@@ -161,16 +179,21 @@ class Trainer:
                     "\n{} \t {}".format(float(s.lowest), int(s.nstep))
                     for s in (getattr(r, attr) for r in pending)
                     if s is not None))
-            sums = {k: sum(r.loss if k == "loss" else r.losses[k]
+            sums = {k: sum(r.loss if k == "loss" else r.losses.get(k, 0.0)
                            for r in pending) for k in LOSS_KEYS}
             n = len(pending)
             pending.clear()
             return sums, n
 
         for i, graph in enumerate(self.loader_train):
-            pending.append(train_step(self.model, self.opts, graph, self.mc,
-                                      lrs, c.gradient_clip, c.jac_weight,
-                                      self.generator))
+            if self.psignn:
+                res = train_step(self.model, self.opts, graph, self.mc, lrs,
+                                 c.gradient_clip, c.jac_weight,
+                                 self.generator)
+            else:
+                res = unrolled_train_step(self.model, self.opts[0], graph,
+                                          self.mc, lrs[0], c.gradient_clip)
+            pending.append(res)
             if i in marks:
                 run, cumul = flush()
                 for k in LOSS_KEYS:
@@ -196,13 +219,18 @@ class Trainer:
         vecs, srads = [], []
         for graph in self.loader_val:
             with torch.no_grad():
-                out = psignn_forward(self.model, graph, self.mc,
-                                     self.generator,
-                                     training=not self.c.val_sradius)
-            loss = psignn_loss(out.losses, self.c.jac_weight)
-            vecs.append(torch.stack([loss.detach()] + [
-                out.losses[k].detach() for k in LOSS_KEYS[1:]]))
-            if self.c.val_sradius:
+                if self.psignn:
+                    out = psignn_forward(self.model, graph, self.mc,
+                                         self.generator,
+                                         training=not self.c.val_sradius)
+                    loss = psignn_loss(out.losses, self.c.jac_weight)
+                else:
+                    out = unrolled_forward(self.model, graph, self.mc)
+                    loss = out.losses["train_loss"]
+            zero = torch.zeros_like(loss)
+            vecs.append(torch.stack([loss] + [out.losses.get(k, zero)
+                                              for k in LOSS_KEYS[1:]]))
+            if self.psignn and self.c.val_sradius:
                 srads.append(out.losses["sradius"])
         sums = torch.stack(vecs).sum(0).cpu().tolist()
         if srads:
@@ -218,7 +246,7 @@ class Trainer:
 
     # ------------------------------------------------------------- main train
 
-    def train_model(self) -> Psignn:
+    def train_model(self) -> torch.nn.Module:
         c = self.c
         checkpoint = None
         # resume continues the epoch numbering and stops at the absolute
@@ -228,12 +256,14 @@ class Trainer:
             t0 = time.time()
             self.train_loop(epoch)
             self.validation_loop(epoch)
-            self.sched_deq.step(self.hist_val["loss"][-1])
-            self.sched_ae.step(self.hist_val["loss"][-1])
+            if self.psignn:
+                self.sched_deq.step(self.hist_val["loss"][-1])
+                self.sched_ae.step(self.hist_val["loss"][-1])
             self.training_time += time.time() - t0
 
             # effective learning rates: the spike guard's scale included
-            if (self.sched_deq.lr * self.lr_scale <= c.lr_floor
+            if (self.psignn
+                    and self.sched_deq.lr * self.lr_scale <= c.lr_floor
                     and self.sched_ae.lr * self.lr_scale <= c.lr_floor):
                 self._log("train_metrics.csv", "\nTraining exit because both "
                           "learning rates too low !")
@@ -246,15 +276,15 @@ class Trainer:
             save_checkpoint(checkpoint, self.path_ckpt, "running_model")
             if improved:
                 save_checkpoint(checkpoint, self.path_ckpt, "best_model")
+            lr_lines = ("\nCurrent Learning rate DEQ : {}"
+                        "\nCurrent Learning rate AUTOENC : {}".format(
+                            self.sched_deq.lr, self.sched_ae.lr)
+                        if self.psignn else "")
             self._log("train_metrics.csv",
                       "\nTraining Epoch {} finished, took current epoch "
                       "{:.2f}s, cumulative time {:.2f}s".format(
                           epoch, time.time() - t0, self.training_time)
-                      + "\nCurrent Learning rate DEQ : {}".format(
-                          self.sched_deq.lr)
-                      + "\nCurrent Learning rate AUTOENC : {}".format(
-                          self.sched_ae.lr)
-                      + ("\nMODEL SAVED" if improved else ""))
+                      + lr_lines + ("\nMODEL SAVED" if improved else ""))
 
             if c.spike_guard and not improved and self.min_loss_save < 1e9:
                 spiked = (self.hist_val["residual_loss"][-1]
@@ -283,21 +313,22 @@ class Trainer:
         return self.model
 
     def _make_checkpoint(self, epoch: int) -> Dict[str, Any]:
+        optim = {key: optimizer_state_to_numpy(opt.state_dict())
+                 for key, opt in zip(self.opt_keys, self.opts)}
+        if self.psignn:
+            optim.update(sched_deq=self.sched_deq.state_dict(),
+                         sched_ae=self.sched_ae.state_dict())
         return dict(
             epoch=epoch,
             family=self.family,
             hyperparameters=dataclasses.asdict(self.mc),
-            params=params_to_jax(self.model.state_dict()),
+            params=self._to_jax(self.model.state_dict()),
             hist_train=self.hist_train,
             hist_val=self.hist_val,
             min_loss_save=self.min_loss_save,
             lr_scale=self.lr_scale,
             training_time=self.training_time,
-            torch_optim=dict(
-                deq=optimizer_state_to_numpy(self.opts[0].state_dict()),
-                ae=optimizer_state_to_numpy(self.opts[1].state_dict()),
-                sched_deq=self.sched_deq.state_dict(),
-                sched_ae=self.sched_ae.state_dict()),
+            torch_optim=optim,
         )
 
     def _load_state(self, ckpt: Dict[str, Any]) -> None:
@@ -307,9 +338,9 @@ class Trainer:
                 "resuming from a JAX checkpoint's optax state is not yet "
                 "ported")
         sd = {k: v.to(self.device) for k, v in
-              params_from_jax(ckpt["params"]).items()}
+              self._from_jax(ckpt["params"]).items()}
         self.model.load_state_dict(sd)
-        for opt, key in zip(self.opts, ("deq", "ae")):
+        for opt, key in zip(self.opts, self.opt_keys):
             opt.load_state_dict(
                 optimizer_state_from_numpy(ckpt["torch_optim"][key]))
 
@@ -322,5 +353,6 @@ class Trainer:
         self.min_loss_save = ckpt["min_loss_save"]
         self.lr_scale = ckpt.get("lr_scale", 1.0)
         self.training_time = ckpt["training_time"]
-        self.sched_deq.load_state_dict(ckpt["torch_optim"]["sched_deq"])
-        self.sched_ae.load_state_dict(ckpt["torch_optim"]["sched_ae"])
+        if self.psignn:
+            self.sched_deq.load_state_dict(ckpt["torch_optim"]["sched_deq"])
+            self.sched_ae.load_state_dict(ckpt["torch_optim"]["sched_ae"])

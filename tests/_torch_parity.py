@@ -8,6 +8,9 @@ import numpy as np
 
 CKPT = "results/psignn_dirichlet/ckpt/best_model.ckpt"
 MIXED_CKPT = "results/psignn_mixed/ckpt/best_model.ckpt"
+DSS_CKPT = "results/dss_dirichlet/ckpt/best_model.ckpt"
+DSGPS_CKPT = "results/dsgps_dirichlet/ckpt/best_model.ckpt"
+DSGPS_MIXED_CKPT = "results/dsgps_mixed/ckpt/best_model.ckpt"
 
 
 def fem_sample(seed: int, radius: float = 1.0, hsize: float = 0.2):
@@ -18,6 +21,28 @@ def fem_sample(seed: int, radius: float = 1.0, hsize: float = 0.2):
     rng = np.random.default_rng(seed)
     mesh = blob_mesh(radius=radius, hsize=hsize, rng=rng)
     return psignn_sample_from_fem(solve_poisson(mesh, radius, rng))
+
+
+def fem_solve(seed: int, radius: float = 1.0, hsize: float = 0.2):
+    """One FEM solve (``solve_poisson``'s dict) on a seeded blob mesh."""
+    from psignn_tpu_torch.data.fem import solve_poisson
+    from psignn_tpu_torch.data.meshgen import blob_mesh
+    rng = np.random.default_rng(seed)
+    mesh = blob_mesh(radius=radius, hsize=hsize, rng=rng)
+    return solve_poisson(mesh, radius, rng)
+
+
+def dss_sample(seed: int, radius: float = 1.0, hsize: float = 0.2):
+    """One DSS graph sample (A′, b′) from the port's own data path."""
+    from psignn_tpu_torch.data.reader import dss_sample_from_fem
+    return dss_sample_from_fem(fem_solve(seed, radius, hsize))
+
+
+def grad_rel(got, want) -> float:
+    """‖got − want‖ / ‖want‖ of two arrays."""
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
 
 
 def mixed_sample(seed: int, radius: float = 1.0, hsize: float = 0.2):
@@ -41,6 +66,41 @@ def jax_mlp_params(rng: np.random.Generator, channels):
         out.append({"w": rng.uniform(-lim, lim, (a, b)).astype(np.float32),
                     "b": rng.uniform(-0.1, 0.1, (b,)).astype(np.float32)})
     return out
+
+
+def jax_dss_params(rng: np.random.Generator, k: int, D: int = 10):
+    """A JAX-layout DSS tree (``dss_init``'s: every leaf stacked on a
+    leading k axis) of seeded numpy MLPs."""
+    layers = [{"phi_to": jax_mlp_params(rng, [2 * D + 1, D, D]),
+               "phi_from": jax_mlp_params(rng, [2 * D + 1, D, D]),
+               "psi": jax_mlp_params(rng, [3 * D + 3, D, D]),
+               "decoder": jax_mlp_params(rng, [D, D, 1])}
+              for _ in range(k)]
+    return {"layers": {
+        name: [{key: np.stack([lay[name][i][key] for lay in layers])
+                for key in ("w", "b")}
+               for i in range(len(layers[0][name]))]
+        for name in layers[0]}}
+
+
+def jax_dsgps_params(rng: np.random.Generator, mixed: bool, D: int = 10,
+                     E: int = 3):
+    """A JAX-layout DS-GPS tree (``dsgps_init``'s) of seeded numpy MLPs,
+    the unused ``laynorm`` at its init values."""
+    P = 3 if mixed else 2
+    tree = {"laynorm": {"scale": np.ones(D, np.float32),
+                        "bias": np.zeros(D, np.float32)},
+            "phi_to": jax_mlp_params(rng, [2 * D + E, D, D]),
+            "phi_from": jax_mlp_params(rng, [2 * D + E, D, D]),
+            "z_k": jax_mlp_params(rng, [3 * D + P, D]),
+            "r_k": jax_mlp_params(rng, [3 * D + P, D]),
+            "correction": jax_mlp_params(rng, [3 * D + P, D]),
+            "autoencoder": {"encoder": jax_mlp_params(rng, [1, D, D]),
+                            "decoder": jax_mlp_params(rng, [D, D, 1])}}
+    if mixed:
+        tree["phi_neumann"] = jax_mlp_params(rng, [2 * D + E, D, D])
+        tree["update_neumann"] = jax_mlp_params(rng, [2 * D + P + 2, D, D])
+    return tree
 
 
 def load_trained(path: str = CKPT):

@@ -58,10 +58,13 @@ def test_load_dataset_matches_jax(datasets, stats):
 
 
 def test_load_dataset_refuses_unported(datasets):
+    """Every family is ported now; an unknown family, a DSS mixed dataset
+    (the reference has none) and unknown statistics are refused."""
     jpath, _ = datasets
-    for family in ("dss", "dsgps"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            reader.load_dataset(jpath, family=family)
+    with pytest.raises(ValueError, match="family"):
+        reader.load_dataset(jpath, family="gnn")
+    with pytest.raises(ValueError, match="Dirichlet variant only"):
+        reader.load_dataset(jpath, family="dss", variant="mixed")
     with pytest.raises(ValueError):
         reader.load_dataset(jpath, stats="dataset-mean")
 

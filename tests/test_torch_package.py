@@ -60,17 +60,17 @@ def test_package_import_leaves_jax_out():
 
 
 def test_scan_covers_every_module():
-    """The import checks above read every module of the training slice
-    and of the mixed slice, and both kernel sources exist beside the
-    kernel module."""
+    """The import checks above read every module of the training slice,
+    of the mixed slice and of the DSS and DS-GPS slice, and both kernel
+    sources exist beside the kernel module."""
     scanned = {str(p.relative_to(PORT)) for p in _port_sources()
                if PORT in p.parents}
     assert {"deq.py", "cli/main.py", "data/generate.py", "data/reader.py",
             "train/optim.py", "train/step.py", "train/checkpoint.py",
             "train/trainer.py", "kernels/fused_mp.py", "solvers.py",
             "graphs.py", "weights.py", "models/psignn.py", "data/fem.py",
-            "data/meshgen.py", "eval/metrics.py",
-            "eval/run_eval.py"} <= scanned
+            "data/meshgen.py", "eval/metrics.py", "eval/sweep.py",
+            "eval/run_eval.py", "models/dss.py", "models/dsgps.py"} <= scanned
     for name in ("fused_mp_fwd", "fused_mp_bwd"):
         assert (build.SRC_DIR / f"{name}.cu").is_file()
 

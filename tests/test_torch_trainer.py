@@ -2,7 +2,8 @@
 their logs and checkpoints, a checkpoint the port trained answering a
 sweep request, the CLI's help, a tiny run, a mixed run and runs with the
 other solvers, the spike guard and the flags of paths not yet ported
-(``tests/test_trainer.py`` mirrored)."""
+(``tests/test_trainer.py`` mirrored).  DSS and DS-GPS runs are in
+``tests/test_torch_unrolled_train.py``."""
 
 import json
 import os
@@ -118,7 +119,7 @@ def test_trained_checkpoint_answers_a_sweep_request(tmp_path, data_dir):
 
 @pytest.mark.parametrize("over", [dict(data_parallel=True),
                                   dict(stacked_batch=True),
-                                  dict(family="dss")])
+                                  dict(family="dsgps", data_parallel=True)])
 def test_trainer_refuses_unported_paths(tmp_path, data_dir, over):
     lt, lv = _loaders(data_dir)
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -263,7 +264,8 @@ def test_cli_trains_with_each_solver(tmp_path, data_dir, capsys, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--family", "dss"], ["--family", "dsgps"],
+    ["--family", "dss", "--stacked_batch"],
+    ["--family", "dsgps", "--num_devices", "2"],
     ["--num_devices", "2"], ["--num_devices", "0"], ["--stacked_batch"],
     ["--lowrank_bf16"], ["--lowrank_max_rank", "8"],
     ["--solver", "newton"], ["--solver", "newton_krylov"],
