@@ -64,17 +64,35 @@ Phases, each printing one JSON line:
                 timed steps from the same parameters with 2k (mixed 3k)
                 forward and backward launches each, one profiled step,
                 and a 2-mesh step on the GPU against the CPU.
-14. trainer   — training as a user runs it: a fresh Dirichlet dataset
+14. stacked_train_step — phase 7's step with one DEQ solve per mesh
+                (``--stacked_batch``): each mesh's forward steps, launches,
+                seconds, busy share; then its 2-mesh GPU-vs-CPU step.
+15. lowrank   — phase 6's loop with Broyden's rank memory capped at 640
+                (never wraps: bit-identical to full memory) and 128 (wraps
+                from step 129), each with f32 and bfloat16 pairs: wall,
+                device time, the rank products' share; then an 8-pair ring
+                on the radius-1 mesh on the GPU against the CPU.
+16. zoo       — the 12 out-of-distribution shapes through ``run_eval
+                --zoo``'s path with the trained Dirichlet checkpoint; then
+                one shape on the CPU.
+17. iterative — ``psignn_iterative_inference`` on the radius-1 sweep mesh,
+                then against the CPU.
+18. several_init — ``test_several_init`` (four starting points) on the
+                radius-1 sweep mesh's sample, on the card and the CPU.
+19. trainer   — training as a user runs it: a fresh Dirichlet dataset
                 (with DSS's encoding) and a fresh mixed one from
                 ``data.generate``, one epoch of ``cli.main`` for Ψ-GNN in
-                each variant, DSS, and DS-GPS in each variant, their logs
-                and checkpoints, and one request answered from each new
-                ``best_model.ckpt``: a sweep request (Dirichlet), the
-                test-split table of ``run_eval`` (mixed).
+                each variant, DSS, and DS-GPS in each variant, one more
+                epoch of the trained Dirichlet Ψ-GNN resumed from its JAX
+                checkpoint, and one ``--stacked_batch --lowrank_max_rank
+                128`` epoch, their logs and checkpoints, and one request
+                answered from each new checkpoint: a sweep request
+                (Dirichlet), the test-split table of ``run_eval`` (mixed).
 
 Then a ``seconds`` line (each phase's wall seconds; ``graphs`` builds the
 headline mesh and the three 50-mesh batches), one ``{"kernels": [...]}``
-line,
+line (each kernel's ``launches`` on its main path, and
+``launches_by_path`` for every path that launches it),
 the ``nvidia-smi`` name/power-limit line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero.  Imports nothing of JAX or ``psignn_tpu``.
@@ -158,10 +176,15 @@ MIXED_EVAL_DATA = dict(n_mesh=10, n_samples=5, radius=1.0, hsize=0.08,
 # thread count stops at step 29 with lowest values within 0.3 %, and step
 # 28 lies 15 % above it: the batch's nstep and lowest are compared there.
 MIXED_REACHABLE_TOL = 5e-3
-# the trainer phase: (family, variant) of each CLI epoch
-TRAINER_RUNS = (("psignn", "dirichlet"), ("psignn", "mixed"),
-                ("dss", "dirichlet"), ("dsgps", "dirichlet"),
-                ("dsgps", "mixed"))
+# the trainer phase: (family, variant, extra CLI flags) of each CLI epoch;
+# "--resume" continues the JAX checkpoint CKPT (its optax Adam state) for
+# one more epoch
+TRAINER_RUNS = (("psignn", "dirichlet", ()), ("psignn", "mixed", ()),
+                ("dss", "dirichlet", ()), ("dsgps", "dirichlet", ()),
+                ("dsgps", "mixed", ()),
+                ("psignn", "dirichlet", ("--resume", CKPT)),
+                ("psignn", "dirichlet", ("--stacked_batch",
+                                         "--lowrank_max_rank", "128")))
 # the solvers phase: (solver, Armijo line search)
 SOLVER_CASES = (("forward_iteration", False), ("anderson", False),
                 ("broyden", True))
@@ -644,9 +667,11 @@ def trained_model(device, overrides=None, ckpt=CKPT):
     return model, cfg, init
 
 
-def step_from(model, cfg, init, graph, seed: int = 7):
+def step_from(model, cfg, init, graph, seed: int = 7,
+              stacked: bool = False):
     """One ``train_step`` from the state ``init`` with fresh optimizers and
-    probes from ``seed``, timed by the host clock around it."""
+    probes from ``seed``, timed by the host clock around it; ``stacked``
+    solves each graph of the batch on its own."""
     from psignn_tpu_torch.train import make_optimizers, train_step
     model.load_state_dict(init)
     opts = make_optimizers(model, *TRAIN_LRS)
@@ -655,7 +680,7 @@ def step_from(model, cfg, init, graph, seed: int = 7):
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = train_step(model, opts, graph, cfg, TRAIN_LRS, TRAIN_CLIP,
-                     TRAIN_JAC_WEIGHT, gen)
+                     TRAIN_JAC_WEIGHT, gen, stacked=stacked)
     if graph.device.type == "cuda":
         torch.cuda.synchronize()
     return res, time.perf_counter() - t0
@@ -737,13 +762,13 @@ def phase_train_step(graph, graph_s: float, device, smi: str,
 
 
 def phase_train_step_cpu_agreement(device, ckpt: str, variant: str,
-                                   phase: str) -> None:
+                                   phase: str, stacked: bool = False) -> None:
     """The same step on 2 meshes on the GPU and on the CPU."""
     out = []
     for dev in (device, torch.device("cpu")):
         graph = train_graph(CMP_MESHES, 1, dev, variant)
         model, cfg, init = trained_model(dev, CMP_OVERRIDES, ckpt)
-        res, _ = step_from(model, cfg, init, graph)
+        res, _ = step_from(model, cfg, init, graph, stacked=stacked)
         grads = {k: p.grad.detach().cpu() for k, p in
                  model.named_parameters()}
         out.append((res, grads))
@@ -758,9 +783,9 @@ def phase_train_step_cpu_agreement(device, ckpt: str, variant: str,
                 for k in cgrad}
     rec = dict(overrides=CMP_OVERRIDES, n_meshes=CMP_MESHES,
                gpu=dict(loss=gpu.loss, grad_norm=gpu.grad_norm,
-                        fw=list(gpu.fw), bw=list(gpu.bw)),
+                        fw=stats(gpu.fw), bw=stats(gpu.bw)),
                cpu=dict(loss=cpu.loss, grad_norm=cpu.grad_norm,
-                        fw=list(cpu.fw), bw=list(cpu.bw)),
+                        fw=stats(cpu.fw), bw=stats(cpu.bw)),
                loss_rel_diff=loss_rel, max_loss_rel_diff=max(loss_rel.values()),
                max_grad_rel_diff=max(grad_rel.values()),
                worst_grad=max(grad_rel, key=grad_rel.get),
@@ -904,12 +929,16 @@ def phase_trainer(device) -> None:
     ``TRAINER_RUNS`` one epoch of the CLI at batch 4 (three train steps,
     one validation step, with the power method for Ψ-GNN) and one request
     from the new best checkpoint: a sweep request (Dirichlet), the
-    test-split table of ``run_eval`` (mixed)."""
+    test-split table of ``run_eval`` (mixed).  The resumed run starts from
+    CKPT's last epoch and answers from its final checkpoint (its
+    validation residual on these meshes need not beat the checkpoint's
+    best).  Returns each run's (forward, backward) launches."""
     from psignn_tpu_torch.cli.main import main as train_main
     from psignn_tpu_torch.data.generate import add_dss_variable, generate_data
     from psignn_tpu_torch.eval import run_eval
     from psignn_tpu_torch.eval.sweep import growing_geometry_sweep
     from psignn_tpu_torch.kernels import fused_mp as mp
+    from psignn_tpu_torch.weights import load_jax_checkpoint
     root = os.path.join(".chipwork", "smoke_trainer")
     shutil.rmtree(root, ignore_errors=True)
     data = {}
@@ -921,16 +950,22 @@ def phase_trainer(device) -> None:
         if variant == "dirichlet":
             add_dss_variable(path)
         data[variant] = (path, time.perf_counter() - t0)
-    for family, variant in TRAINER_RUNS:
+    all_launches = {}
+    for family, variant, flags in TRAINER_RUNS:
         path, gen_s = data[variant]
-        work = os.path.join(root, f"{family}_{variant}")
+        run = "_".join([family, variant] + [f.strip("-") for f in flags
+                                            if f.startswith("--")])
+        work = os.path.join(root, run)
         results = os.path.join(work, "results")
+        resume = "--resume" in flags
+        epochs = 1 + (len(load_jax_checkpoint(CKPT)["hist_val"]["loss"])
+                      if resume else 0)
         mp.LAUNCHES = mp.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
         train_main(["--family", family, "--variant", variant,
                     "--path_dataset", path, "--path_results", results,
-                    "--batch_size", "4", "--max_epochs", "1",
-                    "--device", str(device)])
+                    "--batch_size", "4", "--max_epochs", str(epochs),
+                    "--device", str(device), *flags])
         train_s = time.perf_counter() - t0
         launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
         logs = os.path.join(results, "logs")
@@ -942,8 +977,16 @@ def phase_trainer(device) -> None:
                 lines[name] = len(f.read().strip().splitlines())
         ckpts = {name: os.path.exists(os.path.join(results, "ckpt",
                                                    name + ".ckpt"))
-                 for name in ("running_model", "best_model", "final_model")}
-        best = os.path.join(results, "ckpt", "best_model.ckpt")
+                 for name in ("running_model", "best_model", "final_model")
+                 if not (resume and name == "best_model")}
+        best = os.path.join(results, "ckpt", ("final_model" if resume
+                                              else "best_model") + ".ckpt")
+        if resume:
+            final = load_jax_checkpoint(best)
+            if len(final["hist_val"]["loss"]) != epochs:
+                raise RuntimeError(f"the resumed run trained "
+                                   f"{len(final['hist_val']['loss'])} "
+                                   f"epochs in all, not {epochs}")
         if variant == "dirichlet":
             predict, fam, _, _ = run_eval.load_predictor(best, device)
             req = growing_geometry_sweep(
@@ -960,11 +1003,12 @@ def phase_trainer(device) -> None:
                 table = json.load(f)
             req = dict(res=table["res_mean"], mse=table["mse_mean"],
                        rel=table["rel_mean"])
-        rec = dict(family=family, variant=variant, generate_s=gen_s,
-                   train_s=train_s, fwd_launches=launches[0],
-                   bwd_launches=launches[1], log_lines=lines,
-                   checkpoints=ckpts, request=req)
+        rec = dict(run=run, family=family, variant=variant, flags=flags,
+                   generate_s=gen_s, train_s=train_s,
+                   fwd_launches=launches[0], bwd_launches=launches[1],
+                   log_lines=lines, checkpoints=ckpts, request=req)
         emit("trainer", **rec)
+        all_launches[run] = launches
         # Ψ-GNN: header + 3 steps in each iteration log, one spectral
         # radius; the unrolled families write the headers only
         psignn = family == "psignn"
@@ -974,6 +1018,8 @@ def phase_trainer(device) -> None:
                 or lines["spectral_radius.csv"] != (2 if psignn else 1)
                 or not finite(req["res"], req["mse"])):
             raise RuntimeError(f"trainer phase failed: {rec}")
+    return all_launches
+
 
 def mp_per_step(cfg) -> int:
     """Fused message passings in one DS-GPS or DSS step, each one kernel
@@ -1219,10 +1265,360 @@ def unrolled_cpu_agreement(case: str, ckpt: str, form: str, variant: str,
         raise RuntimeError(f"GPU and CPU unrolled steps disagree: {rec}")
 
 
-def device_breakdown(run, top: int = 8) -> dict:
+def stats(s) -> list:
+    """A ``SolveStats`` as JSON: [lowest, nstep, calls], per-graph lists
+    for a stacked step's."""
+    return [np.asarray(v).tolist() for v in s]
+
+
+def phase_stacked_train_step(graph, graph_s: float, device, smi: str
+                             ) -> tuple[int, int]:
+    """``train_step`` on the 50-mesh Dirichlet batch with one DEQ solve
+    per mesh (``--stacked_batch``): a warm-up, one timed step with its
+    kernel launches (f_θ runs on the whole batch once per iteration of the
+    slowest mesh) and each mesh's forward steps, one profiled step, then
+    the 2-mesh stacked step on the GPU against the CPU.  Returns the timed
+    step's (forward, backward) launches."""
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    t0 = time.perf_counter()
+    model, cfg, init = trained_model(device, TRAIN_OVERRIDES)
+    setup_s = graph_s + time.perf_counter() - t0
+    step_from(model, cfg, init, graph, stacked=True)          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+    res, wall = step_from(model, cfg, init, graph, stacked=True)
+    launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
+    want = expected_launches(res, cfg)
+    fw_nstep = np.asarray(res.fw.nstep).tolist()
+    prof = device_breakdown(lambda: step_from(model, cfg, init, graph,
+                                              stacked=True))
+    rec = dict(card=smi, n_meshes=TRAIN_MESHES, n_nodes=graph.total_nodes,
+               setup_s=setup_s, step_s=wall, loss=res.loss,
+               losses=res.losses, grad_norm=res.grad_norm,
+               fw_nstep_per_graph=fw_nstep, fw=stats(res.fw),
+               bw=stats(res.bw), fwd_launches=launches[0],
+               bwd_launches=launches[1], expected_launches=list(want),
+               busy_share=prof["device_kernel_s"] / wall,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    emit("stacked_train_step", **rec)
+    emit("stacked_train_step_profile", card=smi, unprofiled_step_s=wall,
+         **prof)
+    if (not finite(res.loss, res.grad_norm, *res.losses.values())
+            or launches != want or 0 in launches
+            or len(set(fw_nstep)) == 1 or len(fw_nstep) != TRAIN_MESHES):
+        raise RuntimeError(f"stacked_train_step failed: {rec}")
+    phase_train_step_cpu_agreement(device, CKPT, "dirichlet",
+                                   "stacked_train_step", stacked=True)
+    return launches
+
+
+# the lowrank phase: (max_rank, bfloat16 pairs) of each headline run; 640
+# rounds to 640 > 531 iterations (never wraps), 128 wraps from step 129
+LOWRANK_CASES = ((640, False), (640, True), (128, False), (128, True))
+# its GPU-vs-CPU check: an 8-pair ring (the rank block set to 8) on the
+# radius-1 sweep mesh, 16 steps at fw_tol 0 (the ring wraps from step 9),
+# each step's residual within 1e-2 (the JAX package and the port hold a
+# wrapped ring to 2e-3 on an analytic problem, tests/test_torch_lowrank.py).
+# With bfloat16 pairs an f32-order difference that moves a right-hand side
+# across a bfloat16 rounding boundary changes it by 0.4 %: the card and
+# the CPU part at step 12 (10 % apart there; run 1, PR 6), so bfloat16 is
+# compared over steps 1-11, three of them after the ring wraps.
+LOWRANK_CMP_BLOCK = 8
+LOWRANK_CMP_ITERS = {False: 16, True: 11}
+LOWRANK_TRACE_RTOL = 1e-2
+RANK_RANGE = "broyden_rank_products"
+
+
+def phase_lowrank(graph, device, smi: str) -> int:
+    """The headline loop (seeded weights, 531 iterations at fw_tol 0, the
+    radius-5 mesh) with Broyden's rank memory capped and/or in bfloat16:
+    at max_rank 640 each run must equal full memory (run first, the
+    reference) bit for bit; at 128 the ring wraps.  Wall of each run;
+    device time and the rank products' device time (the kernels launched
+    inside ``solvers._rank_products``, labelled for the profiler here) of
+    each capped run; then the capped solver on the card against the CPU.
+    Returns the launches of the timed runs."""
+    from psignn_tpu_torch import solvers
+    from psignn_tpu_torch.deq import fixed_point_forward
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    from psignn_tpu_torch.models import Psignn, PsignnConfig
+    model = Psignn(PsignnConfig(), generator=torch.Generator().manual_seed(0),
+                   device=device).eval()
+
+    def run(max_rank, bf16):
+        cfg = PsignnConfig(fw_tol=0.0, fw_thres=HEADLINE_ITERS,
+                           lowrank_max_rank=max_rank, lowrank_bf16=bf16)
+        with torch.no_grad():
+            h0 = model.encoder(graph.x) * graph.fnode_mask
+            out = fixed_point_forward(model.function, h0, graph, cfg.deq)
+        torch.cuda.synchronize()
+        return out
+
+    real = solvers._rank_products
+
+    def labelled(*args):
+        with torch.profiler.record_function(RANK_RANGE):
+            return real(*args)
+
+    full, total = {}, 0
+    for max_rank, bf16 in ((0, False), (0, True)) + LOWRANK_CASES:
+        mp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = run(max_rank, bf16)
+        wall = time.perf_counter() - t0
+        launches = mp.LAUNCHES
+        total += launches
+        if max_rank == 0:           # full memory: the reference of its dtype
+            full[bf16] = out
+        ref = full[bf16]
+        same = (torch.equal(out.result, ref.result)
+                and torch.equal(out.rel_trace, ref.rel_trace)
+                and out.lowest == ref.lowest)
+        rec = dict(card=smi, max_rank=max_rank, bf16=bf16,
+                   cap=solvers.rank_cap(HEADLINE_ITERS, max_rank),
+                   iters=out.trace_len - 1, wall_s=wall,
+                   lowest=out.lowest, nstep=out.nstep,
+                   prot_break=out.prot_break, launches=launches,
+                   equals_full_memory=same)
+        if max_rank:
+            # a profile of this loop takes about 14 s (28,000 launches):
+            # the full-memory references are not profiled, the cap-640
+            # runs repeat their arithmetic bit for bit
+            solvers._rank_products = labelled
+            try:
+                prof = device_breakdown(lambda: run(max_rank, bf16),
+                                        ranges=(RANK_RANGE,))
+            finally:
+                solvers._rank_products = real
+            rank_s = prof[RANK_RANGE + "_device_s"]
+            rec.update(device_kernel_s=prof["device_kernel_s"],
+                       rank_products_device_s=rank_s,
+                       rank_products_share=rank_s / prof["device_kernel_s"],
+                       busy_share=prof["device_kernel_s"] / wall,
+                       top_kernels=prof["kernels"][:4])
+        emit("lowrank", **rec)
+        if (out.trace_len - 1 != HEADLINE_ITERS or not np.isfinite(out.lowest)
+                or launches != 2 * (HEADLINE_ITERS + 1)
+                or (max_rank >= HEADLINE_ITERS and not same)):
+            raise RuntimeError(f"lowrank run failed: {rec}")
+    lowrank_cpu_agreement(device)
+    return total
+
+
+def lowrank_cpu_agreement(device) -> None:
+    """The trained Dirichlet weights on the radius-1 sweep mesh with an
+    8-pair ring (the rank block set to ``LOWRANK_CMP_BLOCK``), f32 and
+    bfloat16 pairs, for ``LOWRANK_CMP_ITERS[bf16]`` steps at fw_tol 0 on
+    the card and on the CPU: the residual traces step by step within
+    ``LOWRANK_TRACE_RTOL``."""
+    from psignn_tpu_torch import solvers
+    from psignn_tpu_torch.deq import fixed_point_forward
+    from psignn_tpu_torch.weights import load_psignn_checkpoint
+    cpu = torch.device("cpu")
+    graphs = dict(zip((device, cpu), radius1_graphs("psignn", (device, cpu))))
+
+    def trace(dev, bf16):
+        model, cfg = load_psignn_checkpoint(CKPT, dev, dict(
+            fw_tol=0.0, fw_thres=LOWRANK_CMP_ITERS[bf16], lowrank_bf16=bf16,
+            lowrank_max_rank=LOWRANK_CMP_BLOCK))
+        g = graphs[dev]
+        with torch.no_grad():
+            h0 = model.encoder(g.x) * g.fnode_mask
+            out = fixed_point_forward(model.function, h0, g, cfg.deq)
+        return out.rel_trace.numpy()
+
+    block = solvers._LR_BLOCK
+    solvers._LR_BLOCK = LOWRANK_CMP_BLOCK
+    try:
+        for bf16 in (False, True):
+            gpu, cpu_t = trace(device, bf16), trace(cpu, bf16)
+            rel = float(np.max(np.abs(gpu / cpu_t - 1.0)))
+            rec = dict(bf16=bf16, max_rank=LOWRANK_CMP_BLOCK,
+                       block=LOWRANK_CMP_BLOCK, iters=LOWRANK_CMP_ITERS[bf16],
+                       gpu_rel_trace=gpu.tolist(),
+                       cpu_rel_trace=cpu_t.tolist(),
+                       max_rel_diff=rel, rtol=LOWRANK_TRACE_RTOL)
+            emit("lowrank_cpu_agreement", **rec)
+            if not rel <= LOWRANK_TRACE_RTOL:
+                raise RuntimeError(f"GPU and CPU capped solves disagree: "
+                                   f"{rec}")
+    finally:
+        solvers._LR_BLOCK = block
+
+
+ZOO_CMP_SHAPE = "heart"
+
+
+def _zoo(device, shapes=None, overrides=None, warmup=True):
+    """``run_eval --zoo``'s path (``load_predictor`` →
+    ``geometry_zoo_eval``) with the Dirichlet checkpoint: {shape: metrics},
+    each with the kernel launches of its timed call."""
+    from psignn_tpu_torch.eval.run_eval import load_predictor
+    from psignn_tpu_torch.eval.sweep import geometry_zoo_eval
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    predict, family, _, _ = load_predictor(CKPT, device, overrides)
+    deltas = []
+
+    def counted(graph):
+        before = mp.LAUNCHES
+        out = predict(graph)
+        deltas.append(mp.LAUNCHES - before)
+        return out
+
+    zoo = geometry_zoo_eval({family: counted}, shapes=shapes, device=device,
+                            warmup=warmup)
+    per = 2 if warmup else 1
+    return {shape: dict(m[family], launches=deltas[per * (i + 1) - 1])
+            for i, (shape, m) in enumerate(zoo.items())}
+
+
+def phase_zoo(device) -> int:
+    """All 12 zoo shapes answered on the card by the trained Dirichlet
+    Ψ-GNN; then ``ZOO_CMP_SHAPE`` on the card and the CPU: at the
+    checkpoint's fw_tol the answer's residual and MSE within RES_REL_TOL,
+    at REACHABLE_TOL the steps within NSTEP_SLACK.  (The best residual at
+    REACHABLE_TOL, which the slice phase compares on its own mesh, stood
+    8 % apart here at the same step in run 2 of PR 6: this mesh's
+    trajectory parts earlier.)  Returns the launches of the 12 timed
+    requests."""
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    mp.LAUNCHES = 0
+    zoo = _zoo(device)
+    for shape, m in zoo.items():
+        emit("zoo", shape=shape, **m)
+        if (not finite(m["res"], m["mse"], m["time"]) or m["launches"] == 0
+                or m["prot_break"]):
+            raise RuntimeError(f"zoo request {shape} failed: {m}")
+    if len(zoo) != 12:
+        raise RuntimeError(f"the zoo answered {len(zoo)} shapes, not 12")
+    one = [ZOO_CMP_SHAPE]
+    (gpu,), (cpu,) = (_zoo(d, one, warmup=False).values()
+                      for d in (device, "cpu"))
+    reach = dict(fw_tol=REACHABLE_TOL)
+    (gpu_r,), (cpu_r,) = (_zoo(d, one, reach, warmup=False).values()
+                          for d in (device, "cpu"))
+    rel = {k: abs(gpu[k] - cpu[k]) / cpu[k] for k in ("res", "mse")}
+    rec = dict(shape=ZOO_CMP_SHAPE, gpu=gpu, cpu=cpu, rel_diff=rel,
+               res_rtol=RES_REL_TOL, reachable_tol=REACHABLE_TOL,
+               gpu_reachable=gpu_r, cpu_reachable=cpu_r)
+    emit("zoo_cpu_agreement", **rec)
+    if (max(rel.values()) > RES_REL_TOL
+            or abs(gpu_r["nstep"] - cpu_r["nstep"]) > NSTEP_SLACK):
+        raise RuntimeError(f"GPU and CPU zoo requests disagree: {rec}")
+    return sum(m["launches"] for m in zoo.values())
+
+
+# the iterative phase compares the first iterates' residuals, reached
+# before f32 order moves a Broyden trajectory
+ITERATIVE_CMP_ITERS = 10
+
+
+def phase_iterative(device) -> int:
+    """``psignn_iterative_inference`` of the trained Dirichlet Ψ-GNN on the
+    radius-1 sweep mesh: the decoded trace of every iterate and its
+    metrics, on the card (launches: 2 per f_θ call) and on the CPU at
+    REACHABLE_TOL (steps, x's own metrics, and the first
+    ITERATIVE_CMP_ITERS iterates' residuals within RES_REL_TOL).  Returns
+    the card's launches at the checkpoint's fw_tol."""
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    from psignn_tpu_torch.models import psignn_iterative_inference
+    from psignn_tpu_torch.weights import load_psignn_checkpoint
+    cpu = torch.device("cpu")
+    graphs = dict(zip((device, cpu), radius1_graphs("psignn", (device, cpu))))
+
+    def trace(dev, overrides=None):
+        model, cfg = load_psignn_checkpoint(CKPT, dev, overrides)
+        calls = []
+        model.function.register_forward_hook(lambda *a: calls.append(1))
+        sync(dev)
+        mp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = psignn_iterative_inference(model, graphs[dev], cfg)
+        sync(dev)
+        n = out["trace_len"]
+        res = out["trace"]["res"].cpu().numpy()
+        return out, dict(seconds=time.perf_counter() - t0, nstep=out["nstep"],
+                         trace_len=n, f_calls=len(calls),
+                         launches=mp.LAUNCHES,
+                         entries=int(out["trace"]["u"].shape[0]),
+                         res_initial=float(out["initial"]["res"]),
+                         res_first=res[:ITERATIVE_CMP_ITERS].tolist(),
+                         res_last=float(res[n - 1]),
+                         mse_last=float(out["trace"]["mse"][n - 1]))
+
+    _, gpu = trace(device)
+    emit("iterative", **gpu)
+    if (gpu["launches"] != 2 * gpu["f_calls"] or gpu["f_calls"] == 0
+            or not finite(gpu["res_last"], gpu["mse_last"])):
+        raise RuntimeError(f"iterative failed: {gpu}")
+    reach = dict(fw_tol=REACHABLE_TOL)
+    (_, gpu_r), (_, cpu_r) = trace(device, reach), trace(cpu, reach)
+    first_rel = float(np.max(np.abs(np.subtract(gpu_r["res_first"],
+                                                cpu_r["res_first"]))
+                             / np.abs(cpu_r["res_first"])))
+    rec = dict(reachable_tol=REACHABLE_TOL, gpu=gpu_r, cpu=cpu_r,
+               first_res_rel_diff=first_rel, res_rtol=RES_REL_TOL)
+    emit("iterative_cpu_agreement", **rec)
+    if (first_rel > RES_REL_TOL
+            or abs(gpu_r["nstep"] - cpu_r["nstep"]) > NSTEP_SLACK
+            or abs(gpu_r["res_initial"] - cpu_r["res_initial"])
+            > 1e-6 * cpu_r["res_initial"]):
+        raise RuntimeError(f"GPU and CPU iterate traces disagree: {rec}")
+    return gpu["launches"]
+
+
+# several_init's answers at the checkpoint's fw_tol: across 1, 2 and 8 CPU
+# threads their residuals move by up to 0.2 % and their MSEs by up to
+# 1.4 % (the exact-solution start's), so the card is held to RES_REL_TOL
+# and to this on the MSE
+SEVERAL_INIT_MSE_RTOL = 0.05
+
+
+def phase_several_init(device) -> int:
+    """``test_several_init`` of the trained Dirichlet Ψ-GNN on the radius-1
+    sweep mesh's sample (zero, default, uniform random in [−10, 10] and
+    exact-solution starting points) on the card and on the CPU, at the
+    checkpoint's fw_tol: each start's residual within RES_REL_TOL and MSE
+    within SEVERAL_INIT_MSE_RTOL.  Returns the card's launches."""
+    from psignn_tpu_torch.data.meshgen import blob_mesh
+    from psignn_tpu_torch.eval.run_eval import load_predictor
+    from psignn_tpu_torch.eval.sweep import build_data, test_several_init
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    rng = np.random.default_rng(0)
+    sample = build_data(blob_mesh(radius=1.0, hsize=0.08, rng=rng), 1.0,
+                        rng, ("psignn",))["psignn"]
+    out = {}
+    for dev in (device, "cpu"):
+        predict = load_predictor(CKPT, dev)[0]
+        mp.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out[dev] = test_several_init(predict, sample, device=dev)
+        sync(dev)
+        out[dev] = dict(inits=out[dev], seconds=time.perf_counter() - t0,
+                        launches=mp.LAUNCHES)
+    gpu, cpu = out[device], out["cpu"]
+    rel = {init: {k: abs(m[k] - cpu["inits"][init][k])
+                  / abs(cpu["inits"][init][k]) for k in ("res", "mse")}
+           for init, m in gpu["inits"].items()}
+    rec = dict(gpu=gpu, cpu=cpu, rel_diff=rel, res_rtol=RES_REL_TOL,
+               mse_rtol=SEVERAL_INIT_MSE_RTOL)
+    emit("several_init", **rec)
+    if (gpu["launches"] == 0 or len(gpu["inits"]) != 4
+            or not finite(*(v for m in gpu["inits"].values()
+                            for v in m.values()))
+            or max(r["res"] for r in rel.values()) > RES_REL_TOL
+            or max(r["mse"] for r in rel.values()) > SEVERAL_INIT_MSE_RTOL):
+        raise RuntimeError(f"several_init failed: {rec}")
+    return gpu["launches"]
+
+
+def device_breakdown(run, top: int = 8, ranges=()) -> dict:
     """One more run of ``run`` under ``torch.profiler``: the device's kernel
     time in all and by kernel name, and the busy share of the unprofiled
-    wall it implies.  Kernels run on one stream, so their times add."""
+    wall it implies.  Kernels run on one stream, so their times add.  For
+    each ``record_function`` name of ``ranges``, ``<name>_device_s`` is the
+    device time of the kernels launched inside those ranges."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1235,10 +1631,15 @@ def device_breakdown(run, top: int = 8) -> dict:
         by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
     busy_s = sum(t for t, _ in by_name.values()) * 1e-6
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return dict(profiled_wall_s=profiled_wall, device_kernel_s=busy_s,
-                device_launches=sum(c for _, c in by_name.values()),
-                kernels=[dict(name=k[:80], ms=t * 1e-3, count=c)
-                         for k, (t, c) in ranked])
+    out = dict(profiled_wall_s=profiled_wall, device_kernel_s=busy_s,
+               device_launches=sum(c for _, c in by_name.values()),
+               kernels=[dict(name=k[:80], ms=t * 1e-3, count=c)
+                        for k, (t, c) in ranked])
+    for name in ranges:
+        out[name + "_device_s"] = 1e-6 * sum(
+            ev.device_time_total for ev in prof.events()
+            if ev.name == name and ev.device_type == DeviceType.CPU)
+    return out
 
 
 def main() -> None:
@@ -1278,8 +1679,22 @@ def main() -> None:
     timed("dsgps_mixed_eval", phase_dsgps_mixed_eval, mixed_test, device)
     timed("unrolled_train_step", phase_unrolled_train_step, built, device,
           smi)
-    timed("trainer", phase_trainer, device)
+    stacked = timed("stacked_train_step", phase_stacked_train_step, tgraph,
+                    tgraph_s, device, smi)
+    lowrank = timed("lowrank", phase_lowrank, graph, device, smi)
+    zoo = timed("zoo", phase_zoo, device)
+    iterative = timed("iterative", phase_iterative, device)
+    several = timed("several_init", phase_several_init, device)
+    trainer = timed("trainer", phase_trainer, device)
     emit("seconds", **seconds)
+    # each path's launches, counted from 0 just before it ran
+    fwd["launches_by_path"] = dict(
+        slice=fwd["launches"], stacked_train_step=stacked[0],
+        lowrank=lowrank, zoo=zoo, iterative=iterative, several_init=several,
+        **{"trainer_" + run: n[0] for run, n in trainer.items()})
+    bwd["launches_by_path"] = dict(
+        train_step=bwd["launches"], stacked_train_step=stacked[1],
+        **{"trainer_" + run: n[1] for run, n in trainer.items()})
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,19 +13,22 @@ package so each counterpart is easy to find:
   graphs   — unpadded concatenated mesh graphs + CSR edge packings
   nn       — Xavier-initialised MLP blocks
   ops      — message passing, SpMV and BC-encoded residuals, masked means
-  solvers  — Picard, Anderson, Broyden (+ Armijo line search); Newton and
-             Newton-Krylov not yet ported
+  solvers  — Picard, Anderson, Broyden (+ Armijo line search, capped or
+             bfloat16 rank memory), each also as per-graph lanes of one
+             batch; Newton and Newton-Krylov not yet ported
   deq      — forward solve, implicit backward, Jacobian regularisers
   models   — Ψ-GNN, DS-GPS (Dirichlet and mixed) and DSS (Dirichlet):
-             inference and the training forwards
+             inference, the iterate traces and the training forwards
+             (Ψ-GNN also per graph: ``--stacked_batch``)
   weights  — JAX parameter trees and checkpoints ↔ port modules
   data     — blob and mixed meshes, P1 FEM assembly, samples, dataset
              factory and loader
   kernels  — the CUDA fused message-passing kernels and plain versions
   train    — optimizers, the train steps, checkpoints, the trainer
   cli      — the training command line
-  eval     — per-graph metrics, the test-split table and the
-             growing-geometry sweep
+  eval     — per-graph metrics, the test-split table, the
+             growing-geometry sweep, the out-of-distribution geometry zoo
+             and the several-initialisations study
 
 The package imports torch, numpy and scipy only — never JAX or the JAX
 package.  Entry points run on ``cuda`` unless the caller passes

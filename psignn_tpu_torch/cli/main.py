@@ -12,12 +12,16 @@ Port of ``psignn_tpu/cli/main.py`` for the paths the port has::
 The flags keep the JAX CLI's names and defaults; ``--solver`` also takes
 ``picard``, another name of ``forward_iteration``.  ``--gradient_clip``
 defaults to the family's canonical value: 0.1 for Ψ-GNN, 0.01 for DS-GPS
-and DSS.  A flag for a path that is not yet ported (``--num_devices``
-other than 1, ``--stacked_batch``, ``--lowrank_*``, ``--solver
-newton|newton_krylov``, ``--precision bfloat16``) is refused; the TPU-only
-``--rcm``, ``--pallas`` and ``--cache_batches`` are not flags here.
-``--device`` picks the torch device (default: cuda).  The mixed variant's
-split is shuffled by ``--seed``.
+and DSS.  ``--stacked_batch`` solves each mesh of a Ψ-GNN batch on its own
+(other families ignore it, as in JAX); ``--lowrank_max_rank`` and
+``--lowrank_bf16`` set Broyden's rank memory; ``--precision bfloat16``
+loads the dataset rounded to bfloat16 (the arithmetic stays float32, as
+JAX's float32 parameters make it); ``--resume`` takes a checkpoint of the
+port or of the JAX trainer.  Only the flags of paths not yet ported
+(``--num_devices`` other than 1, ``--solver newton|newton_krylov``) are
+refused; the TPU-only ``--rcm``, ``--pallas`` and ``--cache_batches`` are
+not flags here.  ``--device`` picks the torch device (default: cuda).  The
+mixed variant's split is shuffled by ``--seed``.
 
 A run without ``--resume`` starts afresh: it deletes the ``ckpt/`` and
 ``logs/`` an earlier run left in ``--path_results`` (default
@@ -43,7 +47,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--path_results", type=str,
                    default="results/psignn_torch_run/")
     p.add_argument("--resume", type=str, default="",
-                   help="checkpoint path to resume from (one the port wrote)")
+                   help="checkpoint path to resume from (one the port or the "
+                        "JAX trainer wrote)")
     # training
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--max_epochs", type=int, default=500)
@@ -89,11 +94,16 @@ def get_parser() -> argparse.ArgumentParser:
                    help="mixed dsgps: scale update_neumann's output layer "
                         "at init (1.0 = reference Xavier; about 0.1 starts "
                         "the ungated Neumann recurrence contractive)")
-    # devices and options of paths not yet ported (refused unless default)
+    # devices (refused unless 1: not yet ported) and Broyden's rank memory
     p.add_argument("--num_devices", type=int, default=1)
-    p.add_argument("--lowrank_bf16", action="store_true")
-    p.add_argument("--lowrank_max_rank", type=int, default=0)
-    p.add_argument("--stacked_batch", action="store_true")
+    p.add_argument("--lowrank_bf16", action="store_true",
+                   help="store Broyden's rank-1 pairs in bfloat16")
+    p.add_argument("--lowrank_max_rank", type=int, default=0,
+                   help="> 0: keep only the newest pairs of Broyden's rank "
+                        "memory (rounded up to blocks of 128)")
+    p.add_argument("--stacked_batch", action="store_true",
+                   help="Ψ-GNN: one DEQ solve per mesh of a batch, each "
+                        "stopping at its own tolerance")
     p.add_argument("--spike_guard", action="store_true",
                    help="on a sustained val-residual spike (> spike_factor x "
                         "best for spike_patience epochs) reload the best "
@@ -114,10 +124,6 @@ def refuse_unported(p: argparse.ArgumentParser, args) -> None:
         (args.solver in ("newton", "newton_krylov"),
          f"--solver {args.solver}"),
         (args.num_devices != 1, f"--num_devices {args.num_devices}"),
-        (args.precision != "float32", f"--precision {args.precision}"),
-        (args.stacked_batch, "--stacked_batch"),
-        (args.lowrank_bf16, "--lowrank_bf16"),
-        (args.lowrank_max_rank != 0, "--lowrank_max_rank"),
     ]
     bad = [name for cond, name in unported if cond]
     if bad:
@@ -143,7 +149,9 @@ def build_model_cfg(args):
                             n_layers=args.n_layers, bc_mode=args.variant,
                             solver=args.solver, fw_tol=args.fw_tol,
                             fw_thres=args.fw_thres, bw_tol=args.bw_tol,
-                            bw_thres=args.bw_thres, ls=args.broyden_ls)
+                            bw_thres=args.bw_thres, ls=args.broyden_ls,
+                            lowrank_bf16=args.lowrank_bf16,
+                            lowrank_max_rank=args.lowrank_max_rank)
     if args.family == "dsgps":
         return DsgpsConfig(latent_dim=args.latent_dim, k=args.k,
                            gamma=args.gamma, bc_mode=args.variant,
@@ -183,14 +191,16 @@ def main(argv=None):
     os.makedirs(args.path_results, exist_ok=True)
 
     samples = load_dataset(args.path_dataset, family=args.family,
-                           variant=args.variant, stats=args.stats)
+                           variant=args.variant, stats=args.stats,
+                           precision=args.precision)
     train, val, _ = split_dataset(samples, family=args.family,
                                   variant=args.variant, seed=args.seed)
+    stacked = args.stacked_batch and args.family == "psignn"
     loader_train = GraphLoader(train, batch_size=args.batch_size,
                                shuffle=True, seed=args.seed,
-                               device=args.device)
+                               device=args.device, stacked=stacked)
     loader_val = GraphLoader(val, batch_size=args.batch_size,
-                             device=args.device)
+                             device=args.device, stacked=stacked)
     cfg = TrainConfig(
         family=args.family, model_cfg=build_model_cfg(args),
         max_epochs=args.max_epochs, lr=args.lr, lr_deq=args.lr_deq,
@@ -199,6 +209,7 @@ def main(argv=None):
         gradient_clip=gradient_clip(args), jac_weight=args.jac_weight,
         min_loss_save=args.min_loss_save, path_results=args.path_results,
         seed=args.seed, val_sradius=bool(args.val_sradius),
+        stacked_batch=stacked,
         spike_guard=args.spike_guard, spike_factor=args.spike_factor,
         spike_patience=args.spike_patience, device=args.device)
 

@@ -18,7 +18,11 @@ reference-format ``.npy`` directory, the 60/20/20 ``split_dataset`` and a
 
 The port needs no padding caps (PyTorch runs eagerly), and the loader
 keeps the JAX loader's shuffle, ``np.random.RandomState(seed + epoch)``, so
-both packages see the same batches.
+both packages see the same batches; ``stacked=True`` pads a short last
+batch by cyclic repetition of its samples, as the JAX loader's stacked
+batches are padded (``reader.py:358-377``).  ``dtype="bfloat16"`` (the
+``precision`` of ``load_dataset``) gives the JAX loader's bfloat16
+samples, carried as float32 (``_caster``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from .. import resolve_device
 from ..graphs import Graph, batch_graphs
@@ -57,6 +62,21 @@ REF_STATS[("mixed", "dsgps")] = REF_STATS[("mixed", "psignn")]
 GraphSample = Dict[str, np.ndarray]
 
 
+def _caster(dtype):
+    """(cast, full): ``cast(a)`` is ``np.asarray(a, dtype)``, and ``full``
+    the dtype of the fields the JAX loader keeps in float32 whatever its
+    dtype (the matrix values of ``_coo``, JAX ``reader.py:64-66``).  For
+    ``dtype="bfloat16"`` (JAX's ``--precision bfloat16``) ``cast`` rounds to
+    bfloat16 through float32, as ml_dtypes' cast does, and holds the result
+    as float32, which JAX's ``batch_graphs`` widens it back to."""
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        def cast(a):
+            t = torch.from_numpy(np.asarray(a, np.float32))
+            return t.to(torch.bfloat16).float().numpy()
+        return cast, np.float32
+    return (lambda a: np.asarray(a, dtype)), dtype
+
+
 def _psignn_sample(A, b, sol, prb_data, tags, coordinates, distance,
                    stats: Dict[str, np.ndarray], dtype,
                    normals=None) -> GraphSample:
@@ -65,26 +85,27 @@ def _psignn_sample(A, b, sol, prb_data, tags, coordinates, distance,
     x = 0 inside, x = b on Dirichlet nodes (reader.py:107-116); with
     ``normals``, the normalised ``unit_normal_vector`` of the mixed
     variant."""
+    cast, full = _caster(dtype)
     c = sp.find(A)
-    b = np.asarray(b, dtype).reshape(-1, 1)
-    sol = np.asarray(sol, dtype).reshape(-1, 1)
-    tags = np.asarray(tags, dtype).reshape(len(sol), -1)
+    b = cast(b).reshape(-1, 1)
+    sol = cast(sol).reshape(-1, 1)
+    tags = cast(tags).reshape(len(sol), -1)
     x = np.zeros_like(sol)
     bnd = tags[:, 0] == 1 if tags.shape[1] == 1 else tags[:, 1] == 1
     x[bnd] = b[bnd]
     out = dict(
         x=x, b=b, sol=sol,
-        prb_data=((np.asarray(prb_data) - stats["prb_mean"])
-                  / stats["prb_std"]).astype(dtype),
-        tags=tags, pos=np.asarray(coordinates, dtype),
+        prb_data=cast((np.asarray(prb_data) - stats["prb_mean"])
+                      / stats["prb_std"]),
+        tags=tags, pos=cast(coordinates),
         senders=c[0].astype(np.int32), receivers=c[1].astype(np.int32),
-        a_ij=c[2].reshape(-1, 1).astype(dtype),
-        edge_attr=((np.asarray(distance) - stats["dist_mean"])
-                   / stats["dist_std"]).astype(dtype))
+        a_ij=c[2].reshape(-1, 1).astype(full),
+        edge_attr=cast((np.asarray(distance) - stats["dist_mean"])
+                       / stats["dist_std"]))
     if normals is not None:
-        out["unit_normal_vector"] = (
+        out["unit_normal_vector"] = cast(
             (np.asarray(normals) - stats["normal_mean"])
-            / stats["normal_std"]).astype(dtype)
+            / stats["normal_std"])
     return out
 
 
@@ -128,23 +149,23 @@ def _dss_sample(a_prime, b_prime, sol, tags, coordinates, stats, dtype
     """A DSS graph sample: COO edges over the nonzeros of A′, the 1-wide
     normalised ``a_ij_norm`` they carry into message passing, b′ and its
     normalised form (dss reader.py:89-93)."""
+    cast, full = _caster(dtype)
     c = sp.find(a_prime)
-    v = c[2].astype(dtype)
-    sol = np.asarray(sol, dtype).reshape(-1, 1)
-    bp = np.asarray(b_prime, dtype)
+    v = c[2].astype(full)
+    sol = cast(sol).reshape(-1, 1)
+    bp = cast(b_prime)
     return dict(
         x=sol, b=np.zeros_like(sol), sol=sol,
-        prb_data=np.zeros((len(sol), 2), dtype),
-        tags=np.asarray(tags, dtype).reshape(len(sol), -1),
-        pos=np.asarray(coordinates, dtype),
+        prb_data=np.zeros((len(sol), 2), full),
+        tags=cast(tags).reshape(len(sol), -1),
+        pos=cast(coordinates),
         senders=c[0].astype(np.int32), receivers=c[1].astype(np.int32),
         a_ij=v.reshape(-1, 1),
-        a_ij_norm=((v - stats["aij_mean"]) / stats["aij_std"]
-                   ).reshape(-1, 1).astype(dtype),
+        a_ij_norm=cast(((v - stats["aij_mean"]) / stats["aij_std"]
+                        ).reshape(-1, 1)),
         b_prime=bp,
-        b_prime_norm=((bp - stats["bprime_mean"])
-                      / stats["bprime_std"]).astype(dtype),
-        edge_attr=np.zeros((len(c[0]), 3), dtype))
+        b_prime_norm=cast((bp - stats["bprime_mean"]) / stats["bprime_std"]),
+        edge_attr=np.zeros((len(c[0]), 3), full))
 
 
 def dss_sample_from_fem(s: Dict[str, np.ndarray],
@@ -177,17 +198,26 @@ def _load(path_data: str, name: str) -> np.ndarray:
 
 def load_dataset(path_data: str, family: str = "psignn",
                  variant: str = "dirichlet", stats: str = "reference",
-                 dtype=np.float32) -> List[GraphSample]:
+                 dtype=np.float32,
+                 precision: str = "float32") -> List[GraphSample]:
     """Every sample of a reference-format data directory as a graph sample.
 
     ``stats='reference'`` normalises with ``REF_STATS``; ``'auto'`` with
     the mean and std of the loaded data (edge offsets stay centred).  The
     mixed variant also reads ``unit_normal_vector.npy``; the DSS family
     reads ``A_prime.npy`` and ``b_prime.npy`` (``generate.add_dss_variable``)
-    instead of the full system."""
+    instead of the full system.  ``precision="bfloat16"`` gives the JAX
+    loader's ``dtype=bfloat16`` samples (``--precision bfloat16``, JAX
+    ``cli/main.py:195-201``), held as float32 (``_caster``): the model's
+    arithmetic stays float32, as JAX's float32 parameters promote it."""
     _check(family, variant)
     if stats not in ("reference", "auto"):
         raise ValueError(f"stats must be 'reference' or 'auto', not {stats!r}")
+    if precision not in ("float32", "bfloat16"):
+        raise ValueError(f"precision must be 'float32' or 'bfloat16', not "
+                         f"{precision!r}")
+    if precision == "bfloat16":
+        dtype = "bfloat16"
     if family == "dss":
         return _load_dss(path_data, stats, dtype)
     keys = ["A_sparse_matrix", "b_matrix", "sol", "prb_data", "tags",
@@ -266,7 +296,9 @@ def split_dataset(samples: Sequence, family: str = "psignn",
 class GraphLoader:
     """Minibatches of concatenated ``Graph``s on ``device`` (default:
     ``default_device()``).  With ``shuffle``, epoch k deals the samples in
-    the order of ``np.random.RandomState(seed + k)``."""
+    the order of ``np.random.RandomState(seed + k)``.  With ``stacked``
+    (batches for per-graph solves), a short last batch is filled up to
+    ``batch_size`` graphs by repeating its own samples cyclically."""
 
     samples: List[GraphSample]
     batch_size: int = 50
@@ -274,6 +306,7 @@ class GraphLoader:
     seed: int = 0
     drop_last: bool = False
     device: Optional[object] = None
+    stacked: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -293,6 +326,9 @@ class GraphLoader:
                for i in range(0, len(order), self.batch_size)]
         if self.drop_last and out and len(out[-1]) < self.batch_size:
             out.pop()
+        if self.stacked and out and len(out[-1]) < self.batch_size:
+            last = out[-1]
+            out[-1] = last[np.arange(self.batch_size) % len(last)]
         return out
 
     def __iter__(self) -> Iterator[Graph]:

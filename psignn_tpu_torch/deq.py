@@ -26,7 +26,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .solvers import SolverResult, get_solver
+from .solvers import Lanes, SolverResult, get_solver
 
 
 class DEQConfig(NamedTuple):
@@ -37,16 +37,28 @@ class DEQConfig(NamedTuple):
     bw_tol: float = 1e-8
     bw_thres: int = 300
     ls: bool = False           # Broyden's Armijo line search (solver.py:156)
+    lowrank_bf16: bool = False  # Broyden's rank-1 pairs stored in bfloat16
+    lowrank_max_rank: int = 0   # > 0: Broyden's rank memory capped, a ring
 
 
-def _solver_kwargs(cfg: DEQConfig) -> dict:
-    """Options that only the configured solver takes: ``ls`` goes to
-    Broyden alone, as in the JAX package (``deq.py:59-67``)."""
-    return {"ls": True} if cfg.solver == "broyden" and cfg.ls else {}
+def _solver_kwargs(cfg: DEQConfig, lanes=None) -> dict:
+    """Options that only the configured solver takes: ``ls`` and the rank
+    memory's go to Broyden alone, as in the JAX package (``deq.py:59-67``);
+    ``lanes`` (per-graph solves) to any solver."""
+    kw = {} if lanes is None else {"lanes": lanes}
+    if cfg.solver == "broyden":
+        if cfg.lowrank_bf16:
+            kw["lowrank_dtype"] = torch.bfloat16
+        if cfg.lowrank_max_rank > 0:
+            kw["max_rank"] = cfg.lowrank_max_rank
+        if cfg.ls:
+            kw["ls"] = True
+    return kw
 
 
 class SolveStats(NamedTuple):
-    """What the iteration logs read from one fixed-point solve."""
+    """What the iteration logs read from one fixed-point solve (per-lane
+    solves: (G,) arrays of ``lowest`` and ``nstep``)."""
     lowest: float   # best stop-mode residual
     nstep: int      # step of the best iterate
     calls: int      # evaluations of the solved function
@@ -62,26 +74,28 @@ class AdjointSolve:
 
 
 def fixed_point_forward(f: Callable, h_init: torch.Tensor, graph,
-                        cfg: DEQConfig, keep_trace: bool = False
-                        ) -> SolverResult:
-    """Solve h* = f(h*, h_init, graph) with ``cfg.solver`` from h_init."""
+                        cfg: DEQConfig, keep_trace: bool = False,
+                        lanes: Optional[Lanes] = None) -> SolverResult:
+    """Solve h* = f(h*, h_init, graph) with ``cfg.solver`` from h_init;
+    with ``lanes``, one solve per lane (``solvers.Lanes``)."""
     solver = get_solver(cfg.solver)
     with torch.no_grad():
         h0 = h_init.detach()
         return solver(lambda h: f(h, h0, graph), h0, threshold=cfg.fw_thres,
                       eps=cfg.fw_tol, keep_trace=keep_trace,
-                      **_solver_kwargs(cfg))
+                      **_solver_kwargs(cfg, lanes))
 
 
 def deq_attach(f: Callable, cfg: DEQConfig, h_star: torch.Tensor,
-               h_init: torch.Tensor, graph):
+               h_init: torch.Tensor, graph, lanes: Optional[Lanes] = None):
     """One tracked evaluation new_h* = f(h*, h_init) with the implicit
     backward; returns (new_h*, AdjointSolve).
 
     On backward the gradient g reaching new_h* is replaced by the solution
     y of y = Jᵀy + g (J = ∂f/∂h at h*), solved from zeros with
     ``cfg.bw_tol`` / ``cfg.bw_thres``; y then flows through the one
-    application into the parameters and ``h_init``."""
+    application into the parameters and ``h_init``.  With ``lanes`` the
+    adjoint system is solved per lane, as the forward was."""
     h = h_star.detach().requires_grad_()
     new_h = f(h, h_init, graph)
     adjoint = AdjointSolve()
@@ -96,7 +110,7 @@ def deq_attach(f: Callable, cfg: DEQConfig, h_star: torch.Tensor,
             return torch.autograd.grad(new_h, h, y, retain_graph=True)[0] + g
 
         out = solver(step, torch.zeros_like(g), threshold=cfg.bw_thres,
-                     eps=cfg.bw_tol, **_solver_kwargs(cfg))
+                     eps=cfg.bw_tol, **_solver_kwargs(cfg, lanes))
         adjoint.stats = solve_stats(out)
         return out.result
 
@@ -109,35 +123,56 @@ def _normal(like: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
                        device=generator.device).to(like.device)
 
 
+def _sum(x: torch.Tensor, lanes: Optional[Lanes]) -> torch.Tensor:
+    """Sum of every entry of the (N, W) ``x``, or with ``lanes`` the (G,)
+    sums over each lane's rows."""
+    if lanes is None:
+        return torch.sum(x)
+    return lanes.segment_sum(torch.sum(x, dim=1))
+
+
 def jac_loss_probe(f: Callable, h_star: torch.Tensor, h_init: torch.Tensor,
-                   graph, v: torch.Tensor, denom) -> torch.Tensor:
+                   graph, v: torch.Tensor, denom,
+                   lanes: Optional[Lanes] = None) -> torch.Tensor:
     """‖vᵀJ‖² / denom for an explicit probe ``v``, differentiable in the
-    parameters (the VJP is taken with ``create_graph=True``)."""
+    parameters (the VJP is taken with ``create_graph=True``); with
+    ``lanes``, the (G,) sums over each lane's rows over ``denom`` (G,)."""
     with torch.enable_grad():
         h = h_star.detach().requires_grad_()
         out = f(h, h_init.detach(), graph)
         (vj,) = torch.autograd.grad(out, h, v, create_graph=True)
-        return torch.sum(torch.square(vj)) / denom
+        return _sum(torch.square(vj), lanes) / denom
+
+
+def lane_sizes(h: torch.Tensor, lanes: Lanes) -> torch.Tensor:
+    """(G,) element counts N_g · W of each lane of the (N, W) ``h``."""
+    return (lanes.counts * h.shape[-1]).to(h.dtype)
 
 
 def jac_loss_estimate(f: Callable, h_star: torch.Tensor, h_init: torch.Tensor,
                       graph, generator: torch.Generator, vecs: int = 1,
-                      denom=None) -> torch.Tensor:
+                      denom=None, lanes: Optional[Lanes] = None
+                      ) -> torch.Tensor:
     """Hutchinson estimate of tr(JᵀJ)/size from ``vecs`` Gaussian probes
-    (model.py:416-435); ``denom`` defaults to the element count of h*."""
+    (model.py:416-435); ``denom`` defaults to the element count of h*.
+    With ``lanes``, the (G,) per-lane estimates of JAX's stacked forward
+    (``deq.py:231-236``: ``denom`` = ``lane_sizes``)."""
     if denom is None:
         denom = h_star.numel()
     total = 0.0
     for _ in range(vecs):
         total = total + jac_loss_probe(f, h_star, h_init, graph,
-                                       _normal(h_star, generator), denom)
+                                       _normal(h_star, generator), denom,
+                                       lanes)
     return total / vecs
 
 
 def power_method(f: Callable, h_star: torch.Tensor, h_init: torch.Tensor,
-                 graph, generator: torch.Generator,
-                 n_iters: int = 150) -> torch.Tensor:
-    """Spectral radius of J by power iteration on vᵀJ (model.py:437-452)."""
+                 graph, generator: torch.Generator, n_iters: int = 150,
+                 lanes: Optional[Lanes] = None) -> torch.Tensor:
+    """Spectral radius of J by power iteration on vᵀJ (model.py:437-452);
+    with ``lanes``, a (G,) radius of each lane's block of J, its probe
+    normalised over its own rows."""
     with torch.enable_grad():
         h = h_star.detach().requires_grad_()
         out = f(h, h_init.detach(), graph)
@@ -145,8 +180,12 @@ def power_method(f: Callable, h_star: torch.Tensor, h_init: torch.Tensor,
         sr = torch.zeros((), dtype=h.dtype, device=h.device)
         for _ in range(n_iters):
             (vj,) = torch.autograd.grad(out, h, v, retain_graph=True)
-            sr = torch.abs(torch.sum(vj * v) / torch.sum(v * v))
-            v = vj / torch.linalg.vector_norm(vj)
+            sr = torch.abs(_sum(vj * v, lanes) / _sum(v * v, lanes))
+            if lanes is None:
+                v = vj / torch.linalg.vector_norm(vj)
+            else:
+                norm = torch.sqrt(_sum(vj * vj, lanes))
+                v = vj / norm[lanes.row_lane, None]
     return sr.detach()
 
 
@@ -160,16 +199,23 @@ class DEQOutput(NamedTuple):
 
 def deq_solve(f: Callable, h_init: torch.Tensor, graph, cfg: DEQConfig,
               generator: torch.Generator, compute_sradius: bool = False,
-              jac_vecs: int = 1) -> DEQOutput:
+              jac_vecs: int = 1, lanes: Optional[Lanes] = None) -> DEQOutput:
     """Full DEQ forward: solve, re-attach, Jacobian regulariser, and in eval
-    mode the spectral radius from 150 power iterations (model.py:185-243)."""
-    out_fw = fixed_point_forward(f, h_init, graph, cfg)
+    mode the spectral radius from 150 power iterations (model.py:185-243).
+    With ``lanes`` every part runs per lane: the Jacobian loss and the
+    spectral radius are (G,) and the solve stats hold (G,) arrays."""
+    out_fw = fixed_point_forward(f, h_init, graph, cfg, lanes=lanes)
     h_star = out_fw.result
-    new_h_star, adjoint = deq_attach(f, cfg, h_star, h_init, graph)
+    new_h_star, adjoint = deq_attach(f, cfg, h_star, h_init, graph, lanes)
+    # per-lane calls only add the lanes
+    per_lane = {} if lanes is None else {"lanes": lanes}
+    denom = h_star.numel() if lanes is None else lane_sizes(h_star, lanes)
     jac = jac_loss_estimate(f, h_star, h_init, graph, generator,
-                            vecs=jac_vecs, denom=h_star.numel())
+                            vecs=jac_vecs, denom=denom, **per_lane)
     if compute_sradius:
-        sradius = power_method(f, h_star, h_init, graph, generator)
+        sradius = power_method(f, h_star, h_init, graph, generator,
+                               **per_lane)
     else:
-        sradius = torch.zeros((), dtype=h_star.dtype, device=h_star.device)
+        sradius = torch.zeros(() if lanes is None else (lanes.G,),
+                              dtype=h_star.dtype, device=h_star.device)
     return DEQOutput(new_h_star, jac, solve_stats(out_fw), adjoint, sradius)

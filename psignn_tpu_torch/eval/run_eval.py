@@ -1,14 +1,15 @@
-"""Checkpoint evaluation CLI: the test-split table and the growing-geometry
-sweep of a Ψ-GNN, DS-GPS or DSS checkpoint on the GPU.
+"""Checkpoint evaluation CLI: the test-split table, the growing-geometry
+sweep and the geometry zoo of a Ψ-GNN, DS-GPS or DSS checkpoint on the
+GPU.
 
 Port of ``psignn_tpu/eval/run_eval.py`` (``load_predictor``, the test-split
-table and ``--sweep``)::
+table, ``--sweep`` and ``--zoo``)::
 
     python -m psignn_tpu_torch.eval.run_eval \\
         --ckpt results/psignn_mixed/ckpt/best_model.ckpt --variant mixed \\
         --path_dataset data/mixed --out results/eval/
     python -m psignn_tpu_torch.eval.run_eval \\
-        --ckpt results/dss_dirichlet/ckpt/best_model.ckpt --sweep
+        --ckpt results/dss_dirichlet/ckpt/best_model.ckpt --sweep --zoo
 
 The checkpoint's ``family`` picks the model.  ``--path_dataset`` asks for
 the table: the dataset is loaded in the family's sample form (DSS reads
@@ -19,7 +20,9 @@ printed and, with ``--out``, written to ``test_metrics.json``.  The JAX
 CLI reads ``data/`` unless told otherwise; here the table runs only when a
 dataset is named.  ``--sweep`` builds Dirichlet samples (2-column problem
 data, no normals; DSS's A′ form as well for a DSS checkpoint), so it takes
-a Dirichlet checkpoint only.
+a Dirichlet checkpoint only; so does ``--zoo``, which answers each of the
+12 shapes of ``geometries`` (hsize 0.08) and, with ``--out``, writes
+``geometry_zoo.json``.
 """
 
 from __future__ import annotations
@@ -62,24 +65,28 @@ def main(argv=None):
     p.add_argument("--sweep", action="store_true",
                    help="run the growing-geometry radius sweep (Dirichlet "
                         "checkpoints)")
+    p.add_argument("--zoo", action="store_true",
+                   help="run the out-of-distribution geometry zoo "
+                        "(Dirichlet checkpoints)")
     p.add_argument("--radii", type=float, nargs="+",
                    default=[0.6, 1.0, 2.0, 4.0, 5.0])
     p.add_argument("--n_meshes", type=int, default=3)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
-    if args.path_dataset is None and not args.sweep:
-        p.error("give --path_dataset for the test-split table, --sweep, or "
-                "both")
+    if args.path_dataset is None and not (args.sweep or args.zoo):
+        p.error("give --path_dataset for the test-split table, --sweep "
+                "and/or --zoo")
 
     predict, family, cfg, _ = load_predictor(args.ckpt, args.device)
     mode = getattr(cfg, "bc_mode", "dirichlet")     # DSS: Dirichlet only
     if args.path_dataset is not None and mode != args.variant:
         p.error(f"the checkpoint is a {mode} model; its test split "
                 f"needs --variant {mode}")
-    if args.sweep and mode != "dirichlet":
-        p.error(f"--sweep builds Dirichlet samples (2-column problem data, "
-                f"no normals); a {mode} checkpoint cannot answer it")
+    if (args.sweep or args.zoo) and mode != "dirichlet":
+        p.error(f"--sweep and --zoo build Dirichlet samples (2-column "
+                f"problem data, no normals); a {mode} checkpoint cannot "
+                f"answer them")
 
     def u_only(graph):
         out = predict(graph)
@@ -100,13 +107,23 @@ def main(argv=None):
             with open(os.path.join(args.out, "test_metrics.json"), "w") as f:
                 json.dump(results, f, indent=2)
 
+    forms = ("psignn", "dss") if family == "dss" else ("psignn",)
     if args.sweep:
         from .sweep import growing_geometry_sweep
         summary = growing_geometry_sweep(
             {family: predict}, radii=args.radii, n_meshes=args.n_meshes,
-            out_dir=args.out or None, device=args.device,
-            families=("psignn", "dss") if family == "dss" else ("psignn",))
+            out_dir=args.out or None, device=args.device, families=forms)
         print(json.dumps(summary, indent=2, default=float))
+
+    if args.zoo:
+        from .sweep import geometry_zoo_eval
+        zoo = geometry_zoo_eval({family: predict}, families=forms,
+                                device=args.device)
+        print(json.dumps(zoo, indent=2, default=float))
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "geometry_zoo.json"), "w") as f:
+                json.dump(zoo, f, indent=2, default=float)
 
 
 if __name__ == "__main__":

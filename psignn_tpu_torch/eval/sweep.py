@@ -1,13 +1,17 @@
-"""Growing-geometry sweep — the headline generalisation experiment.
+"""Growing-geometry sweep — the headline generalisation experiment — and
+the geometry zoo and several-initialisations studies.
 
-Port of ``build_data``, ``test_sample`` and ``growing_geometry_sweep``
+Port of ``build_data``, ``test_sample``, ``growing_geometry_sweep``,
+``geometry_zoo_eval`` and ``test_several_init``
 (``psignn_tpu/eval/sweep.py``): for each radius, fresh blob meshes are
 FEM-solved for ground truth and every predictor is run and timed on them;
 per-radius means (and stds) of the metrics come back, and optionally go
-to ``{name}_results.csv``.  The predictor named ``dss`` answers the DSS
-form of each mesh's sample (A′, b′), every other one the Ψ-GNN form, which
-DS-GPS shares; both forms come from the same FEM solve, so asking for the
-DSS form draws no other random numbers.
+to ``{name}_results.csv``.  The zoo does the same on each shape of
+``geometries.GEOMETRY_BUILDERS``; the several-initialisations study
+answers one sample from four starting points.  The predictor named
+``dss`` answers the DSS form of each mesh's sample (A′, b′), every other
+one the Ψ-GNN form, which DS-GPS shares; both forms come from the same FEM
+solve, so asking for the DSS form draws no other random numbers.
 """
 
 from __future__ import annotations
@@ -125,3 +129,58 @@ def growing_geometry_sweep(
                         "{:.6g}".format(per_radius[r][metric]) for r in rs)
                         + "\n")
     return summary
+
+
+def geometry_zoo_eval(predictors: Dict[str, Callable], hsize: float = 0.08,
+                      seed: int = 0, shapes: Optional[Sequence[str]] = None,
+                      families: Sequence[str] = ("psignn",), device=None,
+                      warmup: bool = True
+                      ) -> Dict[str, Dict[str, Dict[str, float]]]:
+    """Out-of-distribution generalisation over the geometry zoo (the
+    reference's ``tests/special_geo`` studies): each shape of ``shapes``
+    (default: all, sorted) meshed at ``hsize``, FEM-solved at radius 1
+    with ``np.random.default_rng(seed)``'s numbers, and answered by every
+    predictor as ``test_sample`` answers it.  Returns ``{shape: {model:
+    metrics}}``."""
+    from .geometries import GEOMETRY_BUILDERS, build_geometry
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    results = {}
+    for name in shapes or sorted(GEOMETRY_BUILDERS):
+        data = build_data(build_geometry(name, hsize=hsize), 1.0, rng,
+                          families)
+        graphs = {k: batch_graphs([v], device=device)
+                  for k, v in data.items()}
+        results[name] = test_sample(predictors, graphs, warmup)
+    return results
+
+
+def test_several_init(predict_fn: Callable, sample: dict,
+                      inits: Sequence[str] = ("zero", "default", "random",
+                                              "solution"),
+                      seed: int = 0, device=None
+                      ) -> Dict[str, Dict[str, float]]:
+    """Robustness to the starting point (spec_geo.py:375-409): the sample
+    answered from x = 0, from its own x (the Dirichlet initialisation),
+    from uniform noise in [−10, 10] (``np.random.default_rng(seed)``'s, as
+    JAX draws it) and from the exact solution.  Returns ``{init: {"mse",
+    "res"}}``."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for mode in inits:
+        s = dict(sample)
+        x = np.array(s["x"])
+        if mode == "zero":
+            x = np.zeros_like(x)
+        elif mode == "random":
+            x = rng.uniform(-10, 10, x.shape).astype(x.dtype)
+        elif mode == "solution":
+            x = np.array(s["sol"])
+        s["x"] = x
+        g = batch_graphs([s], device=device)
+        res = predict_fn(g)
+        u = res[0] if isinstance(res, tuple) else res
+        m = errors_batch(u, g)
+        out[mode] = dict(mse=float(m["mse"][0]), res=float(m["res"][0]))
+    return out

@@ -19,7 +19,11 @@ Port of ``psignn_tpu/models/psignn.py`` (``PsignnConfig``, ``psignn_init``,
 * ``psignn_forward``: the training forward with the JAX package's loss
   dictionary (residual, Jacobian, encoder, autoencoder round-trip, and the
   report-only MSEs and solver stats), the DEQ attached with its implicit
-  backward.
+  backward;
+* ``psignn_forward_stacked``: the same with one DEQ solve per graph of the
+  batch and every loss averaged over the graphs (``--stacked_batch``);
+* ``psignn_iterative_inference``: the decoded iterate trace with its
+  per-iterate metrics.
 """
 
 from __future__ import annotations
@@ -34,7 +38,10 @@ from ..deq import (AdjointSolve, DEQConfig, SolveStats, deq_solve,
                    fixed_point_forward)
 from ..graphs import Graph
 from ..nn import MLP, layer_norm, linear
-from ..ops import message_passing, mse_masked, residual_loss
+from ..ops import (message_passing, mse_masked, mse_masked_per_graph,
+                   mse_masked_stacked, residual_loss, residual_loss_stacked,
+                   residual_per_graph)
+from ..solvers import Lanes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,20 +56,14 @@ class PsignnConfig:
     bw_thres: int = 300
     jac_vecs: int = 1                   # Hutchinson probes (model.py:207)
     edge_dim: int = 3
-    # TPU-era Broyden rank-buffer options of the JAX package, not ported;
-    # accepted so that a JAX checkpoint's hyperparameters load, refused
-    # unless at the default
-    lowrank_bf16: bool = False
-    lowrank_max_rank: int = 0
+    lowrank_bf16: bool = False          # Broyden's pairs in bfloat16
+    lowrank_max_rank: int = 0           # > 0: Broyden's rank memory capped
     ls: bool = False                    # Broyden Armijo line search
 
     def __post_init__(self):
         if self.bc_mode not in ("dirichlet", "mixed"):
             raise ValueError(f"bc_mode must be 'dirichlet' or 'mixed', not "
                              f"{self.bc_mode!r}")
-        if self.lowrank_bf16 or self.lowrank_max_rank:
-            raise NotImplementedError(
-                "lowrank_bf16 and lowrank_max_rank are not yet ported")
 
     @classmethod
     def from_hyperparameters(cls, hp: Dict[str, Any],
@@ -80,7 +81,9 @@ class PsignnConfig:
     def deq(self) -> DEQConfig:
         return DEQConfig(solver=self.solver, fw_tol=self.fw_tol,
                          fw_thres=self.fw_thres, bw_tol=self.bw_tol,
-                         bw_thres=self.bw_thres, ls=self.ls)
+                         bw_thres=self.bw_thres, ls=self.ls,
+                         lowrank_bf16=self.lowrank_bf16,
+                         lowrank_max_rank=self.lowrank_max_rank)
 
 
 class PsignnLayer(nn.Module):
@@ -217,3 +220,85 @@ def psignn_forward(model: Psignn, graph: Graph, cfg: PsignnConfig,
         "sradius": out.sradius,
     }
     return PsignnOutput(u_final, losses, out.fw, out.adjoint)
+
+
+def graph_lanes(graph: Graph) -> Lanes:
+    """One solver lane per graph of the concatenated batch."""
+    return Lanes(graph.graph_id, graph.n_nodes.tolist())
+
+
+def psignn_forward_stacked(model: Psignn, graph: Graph, cfg: PsignnConfig,
+                           generator: torch.Generator, training: bool = True
+                           ) -> PsignnOutput:
+    """``psignn_forward`` with one DEQ solve per graph (JAX
+    ``psignn_forward_stacked``, ``models/psignn.py:195-233``): each mesh
+    stops at its own tolerance, the adjoint solve runs per graph too, and
+    every loss is a per-graph loss averaged over the graphs, not the
+    batch's node-weighted one.  The graphs stay concatenated: f_θ runs once
+    per iteration on the whole batch, through the same kernels, and the
+    solvers keep one lane per graph (``solvers.Lanes``).  ``fw`` and the
+    adjoint stats hold (G,) arrays; ``losses["fw_nstep_per_graph"]`` is
+    the (G,) tensor of the forward solves' steps."""
+    lanes = graph_lanes(graph)
+    h_initial = model.encoder(graph.x) * graph.fnode_mask
+    out = deq_solve(model.function, h_initial, graph, cfg.deq, generator,
+                    compute_sradius=not training, jac_vecs=cfg.jac_vecs,
+                    lanes=lanes)
+    h_final = out.new_h_star
+    u_final = model.decoder(h_final) * graph.fnode_mask
+    nodes = graph.fnode_mask[:, 0] > 0
+
+    u_det = u_final.detach()
+    h_det = h_final.detach()
+
+    def mse(a, b, mask):
+        return mse_masked_per_graph(a, b, mask, graph)
+
+    per_graph = {
+        "residual_loss": residual_per_graph(u_final, graph),
+        "jacobian_loss": out.jac_loss,
+        "encoder_loss": mse(model.encoder(u_det), h_det, nodes),
+        "autoencoder_loss": mse(model.decoder(model.encoder(u_det).detach()),
+                                u_det, nodes),
+        "mse_loss": mse(u_final, graph.sol, nodes),
+        "mse_dirichlet": mse(u_final, graph.x, graph.dirichlet_mask[:, 0] > 0),
+        "fw_lowest": torch.as_tensor(out.fw.lowest, dtype=u_final.dtype,
+                                     device=u_final.device),
+        "fw_nstep": torch.as_tensor(out.fw.nstep, dtype=u_final.dtype,
+                                    device=u_final.device),
+        "sradius": out.sradius,
+    }
+    losses = {k: torch.mean(v) for k, v in per_graph.items()}
+    losses["fw_nstep_per_graph"] = per_graph["fw_nstep"]
+    return PsignnOutput(u_final, losses, out.fw, out.adjoint)
+
+
+def psignn_iterative_inference(model: Psignn, graph: Graph,
+                               cfg: PsignnConfig) -> Dict[str, Any]:
+    """The decoded iterate trace of one solve (JAX
+    ``psignn_iterative_inference``, ``models/psignn.py:261-295``): every
+    entry of the solver's trace (unvisited ones included, as JAX returns
+    them) decoded, with its residual, MSE against the FEM solution, and the
+    MSE on the Dirichlet and on the interior nodes; ``initial`` holds the
+    same for the raw initial condition x (iterate 0 of the reference).
+    Returns ``{"initial", "trace", "nstep", "trace_len"}``."""
+    with torch.no_grad():
+        h_initial = model.encoder(graph.x) * graph.fnode_mask
+        out = fixed_point_forward(model.function, h_initial, graph, cfg.deq,
+                                  keep_trace=True)
+        bmask = graph.dirichlet_mask[:, 0] > 0
+        imask = (~bmask) & (graph.fnode_mask[:, 0] > 0)
+        nodes = graph.fnode_mask[:, 0] > 0
+        U = model.decoder(out.trace) * graph.fnode_mask      # (K, N, 1)
+
+        def metrics(U, stacked):
+            mse = mse_masked_stacked if stacked else mse_masked
+            res = (residual_loss_stacked(U, graph) if stacked
+                   else residual_loss(U, graph))
+            return dict(res=res, mse=mse(U, graph.sol, nodes),
+                        bound_mse=mse(U, graph.sol, bmask),
+                        inter_mse=mse(U, graph.sol, imask), u=U)
+
+        return dict(initial=metrics(graph.x, False),
+                    trace=metrics(U, True), nstep=out.nstep,
+                    trace_len=out.trace_len)

@@ -2,7 +2,8 @@
 
 Port of ``psignn_tpu/ops.py`` (``message_passing``, ``spmv``,
 ``masked_mean``, ``mse_masked``, ``residual_loss``, ``residual_per_graph``,
-``mse_per_graph``, the stacked per-iteration losses of the unrolled models
+``mse_per_graph``, their masked per-graph means (the losses of the
+stacked forward), the stacked per-iteration losses of the unrolled models
 and DSS's BC-encoded residual).  Reference semantics:
 
 * ``Phi_to`` aggregates at receivers with x_i = receiver features,
@@ -88,6 +89,21 @@ def mse_per_graph(a: torch.Tensor, b: torch.Tensor, graph: Graph
                   ) -> torch.Tensor:
     """(G,) per-graph mean squared difference."""
     return _per_graph_mean(torch.square(a - b)[:, 0], graph)
+
+
+def masked_mean_per_graph(x: torch.Tensor, mask: torch.Tensor,
+                          graph: Graph) -> torch.Tensor:
+    """(G,) ``masked_mean`` over each graph's own rows where the (N,)
+    ``mask`` is set, all columns."""
+    m = mask.to(x.dtype)
+    num = per_graph_sum(torch.sum(x * m[:, None], dim=1), graph)
+    return num / (per_graph_sum(m, graph) * x.shape[-1])
+
+
+def mse_masked_per_graph(a: torch.Tensor, b: torch.Tensor,
+                         mask: torch.Tensor, graph: Graph) -> torch.Tensor:
+    """(G,) ``mse_masked`` of each graph."""
+    return masked_mean_per_graph(torch.square(a - b), mask, graph)
 
 
 def mse_masked_stacked(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor

@@ -4,7 +4,8 @@ Port of the two steps of ``psignn_tpu/train/trainer.py``:
 
 * ``train_step`` (Ψ-GNN, ``:262-287``, which ``bench.py:156-173`` also
   runs): loss = residual + jac_weight·jacobian + encoder + autoencoder
-  (training_class.py:156-159), the implicit backward, the dual Adam;
+  (training_class.py:156-159), the implicit backward, the dual Adam; on a
+  stacked batch, one solve per graph and losses averaged over the graphs;
 * ``unrolled_train_step`` (DS-GPS and DSS, ``:288-296``): loss = the
   model's ``train_loss``, backpropagated through the k-step unroll, one
   Adam.
@@ -20,7 +21,8 @@ from ..deq import SolveStats
 from ..graphs import Graph
 from ..models.dsgps import DsgpsConfig, dsgps_forward
 from ..models.dss import dss_forward
-from ..models.psignn import Psignn, PsignnConfig, psignn_forward
+from ..models.psignn import (Psignn, PsignnConfig, psignn_forward,
+                             psignn_forward_stacked)
 from .optim import apply_gradients
 
 
@@ -34,7 +36,9 @@ class StepResult(NamedTuple):
 
 def _host(loss: torch.Tensor, gnorm: torch.Tensor,
           losses: Dict[str, torch.Tensor]):
-    """(loss, grad norm, {name: value}), all in one host read."""
+    """(loss, grad norm, {name: value} of the 0-d entries), all in one host
+    read."""
+    losses = {k: v for k, v in losses.items() if v.dim() == 0}
     host = torch.stack([loss.detach(), gnorm.to(loss.dtype)]
                        + [v.detach() for v in losses.values()]).cpu()
     return (float(host[0]), float(host[1]),
@@ -50,12 +54,16 @@ def psignn_loss(losses: Dict[str, torch.Tensor],
 def train_step(model: Psignn, opts: Sequence[torch.optim.Optimizer],
                graph: Graph, cfg: PsignnConfig, lrs: Sequence[float],
                clip: float, jac_weight: float,
-               generator: torch.Generator) -> StepResult:
+               generator: torch.Generator,
+               stacked: bool = False) -> StepResult:
     """One step on ``graph``; ``opts`` and ``lrs`` are (function,
-    autoencoder) as ``make_optimizers`` builds them."""
+    autoencoder) as ``make_optimizers`` builds them.  ``stacked`` solves
+    each graph of the batch on its own (``psignn_forward_stacked``); the
+    step's ``fw`` and ``bw`` then hold per-graph arrays."""
     for opt in opts:
         opt.zero_grad(set_to_none=True)
-    out = psignn_forward(model, graph, cfg, generator, training=True)
+    forward = psignn_forward_stacked if stacked else psignn_forward
+    out = forward(model, graph, cfg, generator, training=True)
     loss = psignn_loss(out.losses, jac_weight)
     loss.backward()
     gnorm = apply_gradients(model.parameters(), opts, lrs, clip)
@@ -79,6 +87,5 @@ def unrolled_train_step(model, opt: torch.optim.Optimizer, graph: Graph,
     loss = out.losses["train_loss"]
     loss.backward()
     gnorm = apply_gradients(model.parameters(), [opt], [lr], clip)
-    loss_f, gnorm_f, scalars = _host(loss, gnorm, {
-        k: v for k, v in out.losses.items() if v.dim() == 0})
+    loss_f, gnorm_f, scalars = _host(loss, gnorm, out.losses)
     return StepResult(loss_f, scalars, gnorm_f, None, None)

@@ -18,11 +18,17 @@ one device with one concatenated batch per step:
   each Ψ-GNN step's two solves), ``spectral_radius.csv`` from the Ψ-GNN
   validation power method, ``model_config.csv``;
 * running/best/final checkpoints keyed on the validation residual
-  (training_class.py:296-333), ``--spike_guard`` and resume.
+  (training_class.py:296-333), ``--spike_guard`` and resume, from a
+  checkpoint the port wrote or from one of the JAX package (its optax Adam
+  state mapped onto torch's Adam, ``_adam_state_from_optax``);
+* ``stacked_batch`` (Ψ-GNN): one DEQ solve per graph of each batch, losses
+  averaged over the graphs (``psignn_forward_stacked``), in training and
+  validation; the loaders should pad a short last batch as
+  ``GraphLoader(stacked=True)`` does.  The iteration logs then hold each
+  step's means over the graphs, as the JAX trainer writes them.
 
 The loss and gradient plots are left out (the JAX trainer already runs
-without matplotlib).  ``data_parallel`` and ``stacked_batch`` are not yet
-ported and raise.
+without matplotlib).  ``data_parallel`` is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -33,10 +39,11 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models.psignn import psignn_forward
+from ..models.psignn import psignn_forward, psignn_forward_stacked
 from ..weights import FAMILIES
 from .checkpoint import (load_checkpoint, optimizer_state_from_numpy,
                          optimizer_state_to_numpy, save_checkpoint)
@@ -83,9 +90,11 @@ class Trainer:
         if config.family not in FAMILIES:
             raise ValueError(f"family must be one of {sorted(FAMILIES)}, "
                              f"not {config.family!r}")
-        if config.data_parallel or config.stacked_batch:
-            raise NotImplementedError(
-                "data_parallel and stacked_batch are not yet ported")
+        if config.data_parallel:
+            raise NotImplementedError("data_parallel is not yet ported")
+        if config.stacked_batch and config.family != "psignn":
+            raise ValueError("stacked_batch solves Ψ-GNN's DEQ per graph; "
+                             f"the {config.family} family has no solve")
         self.c = config
         self.loader_train = loader_train
         self.loader_val = loader_val
@@ -175,8 +184,10 @@ class Trainer:
         def flush():
             for name, attr in (("forward_iteration.csv", "fw"),
                                ("backward_iteration.csv", "bw")):
+                # a stacked step's per-graph stats log as their means
                 self._log(name, "".join(
-                    "\n{} \t {}".format(float(s.lowest), int(s.nstep))
+                    "\n{} \t {}".format(float(np.mean(s.lowest)),
+                                         int(np.mean(s.nstep)))
                     for s in (getattr(r, attr) for r in pending)
                     if s is not None))
             sums = {k: sum(r.loss if k == "loss" else r.losses.get(k, 0.0)
@@ -189,7 +200,7 @@ class Trainer:
             if self.psignn:
                 res = train_step(self.model, self.opts, graph, self.mc, lrs,
                                  c.gradient_clip, c.jac_weight,
-                                 self.generator)
+                                 self.generator, stacked=c.stacked_batch)
             else:
                 res = unrolled_train_step(self.model, self.opts[0], graph,
                                           self.mc, lrs[0], c.gradient_clip)
@@ -220,9 +231,10 @@ class Trainer:
         for graph in self.loader_val:
             with torch.no_grad():
                 if self.psignn:
-                    out = psignn_forward(self.model, graph, self.mc,
-                                         self.generator,
-                                         training=not self.c.val_sradius)
+                    forward = (psignn_forward_stacked if self.c.stacked_batch
+                               else psignn_forward)
+                    out = forward(self.model, graph, self.mc, self.generator,
+                                  training=not self.c.val_sradius)
                     loss = psignn_loss(out.losses, self.c.jac_weight)
                 else:
                     out = unrolled_forward(self.model, graph, self.mc)
@@ -332,20 +344,57 @@ class Trainer:
         )
 
     def _load_state(self, ckpt: Dict[str, Any]) -> None:
-        """Parameters and optimizer states of a checkpoint the port wrote."""
-        if "torch_optim" not in ckpt:
-            raise NotImplementedError(
-                "resuming from a JAX checkpoint's optax state is not yet "
-                "ported")
+        """Parameters and optimizer states of a checkpoint, one the port
+        wrote (``torch_optim``) or one of the JAX package (``opt_state``)."""
         sd = {k: v.to(self.device) for k, v in
               self._from_jax(ckpt["params"]).items()}
         self.model.load_state_dict(sd)
+        if "torch_optim" not in ckpt:
+            self._adam_state_from_optax(ckpt["opt_state"])
+            return
         for opt, key in zip(self.opts, self.opt_keys):
             opt.load_state_dict(
                 optimizer_state_from_numpy(ckpt["torch_optim"][key]))
 
+    def _adam_state_from_optax(self, opt_state) -> None:
+        """The JAX trainer's ``optax.scale_by_adam`` states (``count``,
+        ``mu``, ``nu``, read by position: the checkpoint reader turns them
+        into plain tuples) as torch Adam's ``step``, ``exp_avg`` and
+        ``exp_avg_sq``.  Ψ-GNN has two, over the update function
+        (``opt_state["deq"]``) and the autoencoder (``["ae"]``); DS-GPS and
+        DSS one over every parameter.  The moment trees are converted as
+        the parameter tree is (``self._from_jax``).  DS-GPS's declared but
+        unused ``laynorm`` has moments in JAX (zero: its gradient is); its
+        port parameter never gets a gradient, so Adam keeps no state for it
+        and those moments are dropped."""
+        states = ((opt_state["deq"], opt_state["ae"]) if self.psignn
+                  else (opt_state,))
+        if self.psignn:
+            # the two moment trees of each kind make one Ψ-GNN tree
+            mu, nu = ({"function": states[0][i], "autoencoder": states[1][i]}
+                      for i in (1, 2))
+            moments = [(self._from_jax(mu), self._from_jax(nu))] * 2
+        else:
+            moments = [(self._from_jax(states[0][1]),
+                        self._from_jax(states[0][2]))]
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        for opt, state, (mu, nu) in zip(self.opts, states, moments):
+            step = torch.tensor(float(np.asarray(state[0])),
+                                dtype=torch.float32)
+            for group in opt.param_groups:
+                for p in group["params"]:
+                    name = names[id(p)]
+                    if name.startswith("laynorm.") and not self.psignn:
+                        continue
+                    opt.state[p] = {
+                        "step": step.clone(),
+                        "exp_avg": mu[name].to(p.device, p.dtype),
+                        "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+
     def load_model(self, path: str) -> None:
-        """Resume from a checkpoint (training_class.py:68-81)."""
+        """Resume from a checkpoint (training_class.py:68-81), one the port
+        wrote or one of the JAX package; the JAX trainer keeps its
+        schedulers at the checkpoint's top level."""
         ckpt = load_checkpoint(path)
         self._load_state(ckpt)
         self.hist_train = ckpt["hist_train"]
@@ -354,5 +403,6 @@ class Trainer:
         self.lr_scale = ckpt.get("lr_scale", 1.0)
         self.training_time = ckpt["training_time"]
         if self.psignn:
-            self.sched_deq.load_state_dict(ckpt["torch_optim"]["sched_deq"])
-            self.sched_ae.load_state_dict(ckpt["torch_optim"]["sched_ae"])
+            scheds = ckpt.get("torch_optim", ckpt)
+            self.sched_deq.load_state_dict(scheds["sched_deq"])
+            self.sched_ae.load_state_dict(scheds["sched_ae"])

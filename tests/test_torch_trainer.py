@@ -2,7 +2,10 @@
 their logs and checkpoints, a checkpoint the port trained answering a
 sweep request, the CLI's help, a tiny run, a mixed run and runs with the
 other solvers, the spike guard and the flags of paths not yet ported
-(``tests/test_trainer.py`` mirrored).  DSS and DS-GPS runs are in
+(``tests/test_trainer.py`` mirrored).  The per-graph solves, Broyden's
+rank memory, bfloat16 data and resuming from a JAX checkpoint are in
+``tests/test_torch_stacked.py``, ``test_torch_lowrank.py`` and
+``test_torch_resume.py``.  DSS and DS-GPS runs are in
 ``tests/test_torch_unrolled_train.py``."""
 
 import json
@@ -118,7 +121,6 @@ def test_trained_checkpoint_answers_a_sweep_request(tmp_path, data_dir):
 
 
 @pytest.mark.parametrize("over", [dict(data_parallel=True),
-                                  dict(stacked_batch=True),
                                   dict(family="dsgps", data_parallel=True)])
 def test_trainer_refuses_unported_paths(tmp_path, data_dir, over):
     lt, lv = _loaders(data_dir)
@@ -264,12 +266,10 @@ def test_cli_trains_with_each_solver(tmp_path, data_dir, capsys, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--family", "dss", "--stacked_batch"],
     ["--family", "dsgps", "--num_devices", "2"],
-    ["--num_devices", "2"], ["--num_devices", "0"], ["--stacked_batch"],
-    ["--lowrank_bf16"], ["--lowrank_max_rank", "8"],
-    ["--solver", "newton"], ["--solver", "newton_krylov"],
-    ["--precision", "bfloat16"]], ids=lambda f: "_".join(f).strip("-"))
+    ["--num_devices", "2"], ["--num_devices", "0"],
+    ["--solver", "newton"], ["--solver", "newton_krylov"]],
+    ids=lambda f: "_".join(f).strip("-"))
 def test_cli_refuses_unported_flags(tmp_path, data_dir, capsys, flags):
     with pytest.raises(SystemExit) as e:
         main(["--path_dataset", data_dir, "--path_results",
