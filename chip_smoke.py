@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``psignn_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # the phases below, on one card
+
+NCCL across several cards is the dry run's:
+``python -m psignn_tpu_torch.dist.dryrun --num_devices N --device cuda``.
 
 Phases, each printing one JSON line:
 
@@ -69,9 +72,10 @@ Phases, each printing one JSON line:
                 seconds, busy share; then its 2-mesh GPU-vs-CPU step.
 15. lowrank   — phase 6's loop with Broyden's rank memory capped at 640
                 (never wraps: bit-identical to full memory) and 128 (wraps
-                from step 129), each with f32 and bfloat16 pairs: wall,
-                device time, the rank products' share; then an 8-pair ring
-                on the radius-1 mesh on the GPU against the CPU.
+                from step 129), each with f32 and bfloat16 pairs: wall;
+                device time and the rank products' share of the cap-128
+                runs; then an 8-pair ring on the radius-1 mesh on the GPU
+                against the CPU.
 16. zoo       — the 12 out-of-distribution shapes through ``run_eval
                 --zoo``'s path with the trained Dirichlet checkpoint; then
                 one shape on the CPU.
@@ -79,15 +83,33 @@ Phases, each printing one JSON line:
                 then against the CPU.
 18. several_init — ``test_several_init`` (four starting points) on the
                 radius-1 sweep mesh's sample, on the card and the CPU.
-19. trainer   — training as a user runs it: a fresh Dirichlet dataset
+19. dist      — the multi-rank paths, each rank one spawned process on
+                the card (one H100: several ranks share it over gloo,
+                staging through the host; NCCL is checked on one rank):
+                ``dist_partitioned`` (the trained Dirichlet Ψ-GNN's Picard
+                request on the RCM-ordered radius-5 mesh split over 2 ranks,
+                then 1 NCCL rank, against the single-process request),
+                ``dist_edge_mp`` (edge-sharded message passing over 2 ranks
+                against one kernel call), ``dist_train_step`` (the dp
+                Ψ-GNN step on the 50-mesh batch at 2 ranks, its 2-mesh step
+                on the card against the CPU, one dp DSS and one dp DS-GPS
+                step, and the one-rank NCCL dp step against
+                ``train_step``), ``dist_partitioned_train_step`` (dp 2 ×
+                parts 2 on two RCM-ordered radius-1 meshes, the card
+                against the CPU); a ``dist_world`` line says where each
+                world's seconds went.
+20. trainer   — training as a user runs it: a fresh Dirichlet dataset
                 (with DSS's encoding) and a fresh mixed one from
                 ``data.generate``, one epoch of ``cli.main`` for Ψ-GNN in
                 each variant, DSS, and DS-GPS in each variant, one more
                 epoch of the trained Dirichlet Ψ-GNN resumed from its JAX
-                checkpoint, and one ``--stacked_batch --lowrank_max_rank
-                128`` epoch, their logs and checkpoints, and one request
-                answered from each new checkpoint: a sweep request
-                (Dirichlet), the test-split table of ``run_eval`` (mixed).
+                checkpoint, one ``--stacked_batch --lowrank_max_rank 128``
+                epoch and one ``--num_devices 2 --device cuda:0`` epoch (two
+                ranks launched as torchrun launches them, on the card
+                over gloo), their logs and
+                checkpoints, and one request answered from each new
+                checkpoint: a sweep request (Dirichlet), the test-split
+                table of ``run_eval`` (mixed).
 
 Then a ``seconds`` line (each phase's wall seconds; ``graphs`` builds the
 headline mesh and the three 50-mesh batches), one ``{"kernels": [...]}``
@@ -184,7 +206,9 @@ TRAINER_RUNS = (("psignn", "dirichlet", ()), ("psignn", "mixed", ()),
                 ("dsgps", "mixed", ()),
                 ("psignn", "dirichlet", ("--resume", CKPT)),
                 ("psignn", "dirichlet", ("--stacked_batch",
-                                         "--lowrank_max_rank", "128")))
+                                         "--lowrank_max_rank", "128")),
+                ("psignn", "dirichlet", ("--num_devices", "2", "--device",
+                                         "cuda:0")))
 # the solvers phase: (solver, Armijo line search)
 SOLVER_CASES = (("forward_iteration", False), ("anderson", False),
                 ("broyden", True))
@@ -641,11 +665,18 @@ def train_graph(n_meshes: int, seed: int, device,
     0.08; mixed-BC ones for ``variant='mixed'``), FEM-solved, concatenated
     into one graph; ``form='dss'`` gives the same Dirichlet meshes and
     solves in DSS's A′ form."""
+    from psignn_tpu_torch.graphs import batch_graphs
+    return batch_graphs(train_samples(n_meshes, seed, variant, form),
+                        device=device)
+
+
+def train_samples(n_meshes: int, seed: int, variant: str = "dirichlet",
+                  form: str = "psignn") -> list:
+    """The samples of ``train_graph``."""
     from psignn_tpu_torch.data.fem import solve_poisson, solve_poisson_mixed
     from psignn_tpu_torch.data.meshgen import blob_mesh, mixed_blob_mesh
     from psignn_tpu_torch.data.reader import (dss_sample_from_fem,
                                               psignn_sample_from_fem)
-    from psignn_tpu_torch.graphs import batch_graphs
     make, solve = ((mixed_blob_mesh, solve_poisson_mixed)
                    if variant == "mixed" else (blob_mesh, solve_poisson))
     rng = np.random.default_rng(seed)
@@ -655,7 +686,7 @@ def train_graph(n_meshes: int, seed: int, device,
         s = solve(mesh, 1.0, rng)
         samples.append(dss_sample_from_fem(s) if form == "dss"
                        else psignn_sample_from_fem(s, variant=variant))
-    return batch_graphs(samples, device=device)
+    return samples
 
 
 def trained_model(device, overrides=None, ckpt=CKPT):
@@ -960,14 +991,18 @@ def phase_trainer(device) -> None:
         resume = "--resume" in flags
         epochs = 1 + (len(load_jax_checkpoint(CKPT)["hist_val"]["loss"])
                       if resume else 0)
-        mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+        argv = ["--family", family, "--variant", variant, "--path_dataset",
+                path, "--path_results", results, "--batch_size", "4",
+                "--max_epochs", str(epochs), "--device", str(device), *flags]
         t0 = time.perf_counter()
-        train_main(["--family", family, "--variant", variant,
-                    "--path_dataset", path, "--path_results", results,
-                    "--batch_size", "4", "--max_epochs", str(epochs),
-                    "--device", str(device), *flags])
+        if "--num_devices" in flags:
+            launches = trainer_world(
+                argv, int(flags[flags.index("--num_devices") + 1]))
+        else:
+            mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+            train_main(argv)
+            launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
         train_s = time.perf_counter() - t0
-        launches = (mp.LAUNCHES, mp.BWD_LAUNCHES)
         logs = os.path.join(results, "logs")
         lines = {}
         for name in ("train_metrics.csv", "forward_iteration.csv",
@@ -1019,6 +1054,29 @@ def phase_trainer(device) -> None:
                 or not finite(req["res"], req["mse"])):
             raise RuntimeError(f"trainer phase failed: {rec}")
     return all_launches
+
+
+def trainer_rank(rank: int, n: int, port: int, argv: list) -> tuple:
+    """One rank of a torchrun-style launch of the training CLI (the
+    launcher's ``RANK`` / ``WORLD_SIZE`` / ``MASTER_*``): its (forward,
+    backward) launches, counted from 0 just before the command."""
+    from psignn_tpu_torch.cli.main import main as train_main
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+    train_main(argv)
+    return mp.LAUNCHES, mp.BWD_LAUNCHES
+
+
+def trainer_world(argv: list, n: int) -> tuple:
+    """``argv`` (with ``--num_devices n``) on ``n`` ranks launched as
+    torchrun launches them; their launches summed."""
+    from psignn_tpu_torch.dist import multihost
+    ranks = multihost.spawn(trainer_rank, n, (n, multihost.free_port(), argv),
+                            timeout=DIST_TIMEOUT)
+    return tuple(sum(r[i] for r in ranks) for i in (0, 1))
 
 
 def mp_per_step(cfg) -> int:
@@ -1336,7 +1394,8 @@ def phase_lowrank(graph, device, smi: str) -> int:
     reference) bit for bit; at 128 the ring wraps.  Wall of each run;
     device time and the rank products' device time (the kernels launched
     inside ``solvers._rank_products``, labelled for the profiler here) of
-    each capped run; then the capped solver on the card against the CPU.
+    each run whose ring wraps; then the capped solver on the card against
+    the CPU.
     Returns the launches of the timed runs."""
     from psignn_tpu_torch import solvers
     from psignn_tpu_torch.deq import fixed_point_forward
@@ -1380,10 +1439,10 @@ def phase_lowrank(graph, device, smi: str) -> int:
                    lowest=out.lowest, nstep=out.nstep,
                    prot_break=out.prot_break, launches=launches,
                    equals_full_memory=same)
-        if max_rank:
+        if 0 < max_rank < HEADLINE_ITERS:
             # a profile of this loop takes about 14 s (28,000 launches):
-            # the full-memory references are not profiled, the cap-640
-            # runs repeat their arithmetic bit for bit
+            # the full-memory references are not profiled, and neither are
+            # the cap-640 runs, which repeat their arithmetic bit for bit
             solvers._rank_products = labelled
             try:
                 prof = device_breakdown(lambda: run(max_rank, bf16),
@@ -1612,6 +1671,486 @@ def phase_several_init(device) -> int:
     return gpu["launches"]
 
 
+# --------------------------------------------------------------- multi-rank
+#
+# The smoke runs on one card: every multi-rank world below puts its ranks
+# on cuda:0 over gloo (NCCL refuses two ranks on one card), each rank one
+# process spawned from this script; one world of one rank checks NCCL.
+# Each job below runs on every rank of its world and returns what the
+# parent checks; every rank counts its own kernel launches.
+
+# the partitioned request: Picard at a reachable fw_tol on the radius-5
+# mesh, compared as JAX's tests/test_halo.py:113-151 compares its
+# partitioned solve with one device — |Δnstep| ≤ 1, the residual of a step
+# both solves took within 5e-2, u within 1e-2 relative and 2e-3 absolute,
+# the mesh's residual within 1e-3.  Picard's iterates contract whatever
+# the f32 summation order; Broyden's, with the trained weights on this
+# mesh, part under it well before fw_tol 1e-4 (on the CPU, one process
+# against two ranks: 409 and 337 steps, u 17 % apart), so its
+# partitioned solve is held to the CPU's at the f32 floor instead
+# (dist_partitioned_train_step).
+DIST_OVERRIDES = dict(solver="forward_iteration", fw_tol=1e-3,
+                      fw_thres=4000)
+DIST_SOLVER = DIST_OVERRIDES["solver"]
+# the multi-rank steps' card-vs-CPU (and NCCL-vs-one-process) checks: both
+# solves at their f32 floor as CMP_OVERRIDES, in at most 400 iterations
+# (the forward reaches the floor first; the adjoint, at bw_tol 1e-8 never
+# met, then stands within 1e-7 of it either way)
+DIST_CMP_OVERRIDES = dict(CMP_OVERRIDES, fw_thres=400, bw_thres=400)
+DIST_NSTEP_SLACK = 1
+DIST_LOWEST_RTOL = 5e-2
+DIST_U_RTOL, DIST_U_ATOL = 1e-2, 2e-3
+DIST_RES_RTOL = 1e-3
+# seconds a world may take before its ranks are terminated
+DIST_TIMEOUT = 300
+
+
+def dist_rank(rank: int, n: int, backend: str, device: str, init: str,
+              jobs: list) -> dict:
+    """One spawned rank: join the world, run each job by name; with the
+    host clock at its entry, once joined, and at its end."""
+    from psignn_tpu_torch.dist import multihost
+    entry = time.time()
+    if device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+        torch.zeros(1, device=device)           # the context, made here
+    multihost.initialize(backend, init, n, rank)
+    joined = time.time()
+    results = [globals()[name](**kw) for name, kw in jobs]
+    return dict(entry=entry, joined=joined, end=time.time(),
+                results=results)
+
+
+def dist_world(n: int, backend: str, jobs: list, device: str = "cuda:0"
+               ) -> list:
+    """Each rank's results of ``jobs`` in a fresh world of ``n`` ranks, all
+    on ``device``; emits where the world's time went (``dist_world``)."""
+    from psignn_tpu_torch.dist import multihost
+    init = f"tcp://127.0.0.1:{multihost.free_port()}"
+    t0 = time.time()
+    ranks = multihost.spawn(dist_rank, n, (n, backend, device, init, jobs),
+                            timeout=DIST_TIMEOUT)
+    t1 = time.time()
+    emit("dist_world", ranks=n, backend=backend,
+         jobs=[name for name, _ in jobs], wall_s=t1 - t0,
+         start_s=[r["entry"] - t0 for r in ranks],
+         join_s=[r["joined"] - r["entry"] for r in ranks],
+         jobs_s=[r["end"] - r["joined"] for r in ranks],
+         exit_s=[t1 - r["end"] for r in ranks])
+    return [r["results"] for r in ranks]
+
+
+def _counted(fn, device):
+    """(result, host seconds, (forward, backward) launches) of ``fn()``."""
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    sync(device)
+    mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0, (mp.LAUNCHES, mp.BWD_LAUNCHES)
+
+
+def job_partitioned(sample: dict, parts: int, device: str,
+                    overrides: dict = DIST_OVERRIDES) -> dict:
+    """The trained Dirichlet Ψ-GNN's partitioned request: part
+    ``part_index`` of ``sample`` on this rank, ``parts`` ranks a row;
+    the second of two, timed and counted."""
+    from psignn_tpu_torch.dist import build_partitioned_graph, multihost
+    from psignn_tpu_torch.dist.partitioned import make_partitioned_inference
+    mesh = multihost.global_mesh(1, parts, device)
+    model, cfg, _ = trained_model(device, overrides)
+    pg = build_partitioned_graph(sample, parts, mesh.part_index,
+                                 device=device)
+    infer = make_partitioned_inference(cfg, mesh)
+    infer(model, pg)     # warm-up: a fresh process's first calls, untimed
+    mesh.barrier()
+    out, seconds, launches = _counted(lambda: infer(model, pg), device)
+    return dict(part=mesh.part_index, u=out.u.cpu().numpy(),
+                nstep=out.nstep, lowest=out.lowest, residual=out.residual,
+                calls=out.calls, rel_trace=out.rel_trace, seconds=seconds,
+                launches=launches, n_loc=pg.n_loc, halo=pg.halo,
+                backend=mesh.backend)
+
+
+def job_edge_mp(sample: dict, device: str) -> dict:
+    """``partition_message_passing`` of the headline mesh over the row,
+    against one kernel call on the whole graph (made after the count)."""
+    from psignn_tpu_torch.dist import multihost, partition_message_passing
+    from psignn_tpu_torch.dist.partition import pad_edges_for_sharding
+    from psignn_tpu_torch.graphs import batch_graphs
+    from psignn_tpu_torch.nn import MLP
+    from psignn_tpu_torch.ops import message_passing
+    mesh = multihost.global_mesh(1, multihost.world_size(), device)
+    g = batch_graphs([sample], device=device)
+    mlp = MLP([2 * WIDTH + 3, WIDTH, WIDTH],
+              generator=torch.Generator().manual_seed(3), device=device)
+    h = torch.randn((g.total_nodes, WIDTH),
+                    generator=torch.Generator().manual_seed(4)).to(device)
+    arrs = pad_edges_for_sharding(dict(
+        senders=np.asarray(sample["senders"]),
+        receivers=np.asarray(sample["receivers"]),
+        edge_attr=np.asarray(sample["edge_attr"], np.float32),
+        edge_mask=np.ones(len(sample["senders"]), bool)), mesh.parts)
+    mp = partition_message_passing(mesh)
+    out = {}
+    for direction in ("to", "from"):
+        with torch.no_grad():
+            got, seconds, launches = _counted(lambda: mp(
+                mlp, h, arrs["senders"], arrs["receivers"],
+                arrs["edge_attr"], arrs["edge_mask"], direction), device)
+            want = message_passing(mlp, h, g, direction)
+        out[direction] = dict(
+            max_abs_err=float((got - want).abs().max()),
+            scale=float(want.abs().max()), seconds=seconds,
+            launches=launches, shard_edges=len(arrs["senders"]) // mesh.parts)
+    return out
+
+
+def _dp_psignn_step(samples: list, device: str, overrides: dict,
+                    seed: int = 7):
+    """One data-parallel ``train_step`` of the rank's shard of
+    ``samples`` from the trained weights: (StepResult, host seconds,
+    launches, clipped gradients on the host)."""
+    from psignn_tpu_torch.dist import make_mesh, shard_stacked
+    from psignn_tpu_torch.train import make_optimizers, train_step
+    mesh = make_mesh(device=device)
+    graph = shard_stacked(samples, len(samples), mesh)
+    model, cfg, init = trained_model(device, overrides)
+
+    def step():
+        model.load_state_dict(init)
+        opts = make_optimizers(model, *TRAIN_LRS)
+        return train_step(model, opts, graph, cfg, TRAIN_LRS, TRAIN_CLIP,
+                          TRAIN_JAC_WEIGHT,
+                          torch.Generator().manual_seed(seed + mesh.rank),
+                          mesh=mesh)
+
+    res, seconds, launches = _counted(step, device)
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return res, seconds, launches, grads, (model, cfg, step, graph, mesh)
+
+
+def job_dp_train_step(samples: list, cmp_samples: list,
+                      device: str) -> dict:
+    """The dp Ψ-GNN step on the rank's shard of the 50-mesh batch: a
+    warm-up, one timed step with its launches, one profiled step (rank 0);
+    then the 2-mesh step at the f32 floor on the card and on the CPU."""
+    _dp_psignn_step(samples, device, TRAIN_OVERRIDES)          # warm-up
+    res, seconds, launches, _, (model, cfg, step, graph, mesh) = \
+        _dp_psignn_step(samples, device, TRAIN_OVERRIDES)
+    out = dict(rank=mesh.rank, n_nodes=graph.total_nodes,
+               n_graphs=graph.num_graphs, seconds=seconds, loss=res.loss,
+               losses=res.losses, grad_norm=res.grad_norm,
+               fw=stats(res.fw), bw=stats(res.bw), launches=launches,
+               expected_launches=expected_launches(res, cfg))
+    if mesh.rank == 0:
+        prof = device_breakdown(step)
+        out.update(busy_share=prof["device_kernel_s"] / seconds,
+                   device_kernel_s=prof["device_kernel_s"],
+                   top_kernels=prof["kernels"][:4])
+    else:
+        step()
+    for label, dev in (("gpu", device), ("cpu", "cpu")):
+        r, _, _, grads, _ = _dp_psignn_step(cmp_samples, dev,
+                                            DIST_CMP_OVERRIDES)
+        out["cmp_" + label] = dict(
+            loss=r.loss, losses=r.losses, grad_norm=r.grad_norm,
+            fw=stats(r.fw), bw=stats(r.bw),
+            grads={k: v.numpy() for k, v in grads.items()})
+    return out
+
+
+def job_dp_unrolled(samples: dict, device: str) -> dict:
+    """One dp DSS and one dp DS-GPS step (each after a warm-up) on the
+    rank's shard of the 50-mesh batch: seconds and launches (2k each)."""
+    from psignn_tpu_torch.dist import make_mesh, shard_stacked
+    from psignn_tpu_torch.train import make_adam, unrolled_train_step
+    mesh = make_mesh(device=device)
+    out = {}
+    for case, ckpt, form, _, lr in UNROLLED_CASES[:2]:
+        chunk = samples[form]
+        graph = shard_stacked(chunk, len(chunk), mesh)
+        model, cfg, init = trained_model(device, ckpt=ckpt)
+        opt = make_adam(model, lr)
+
+        def step():
+            model.load_state_dict(init)
+            return unrolled_train_step(model, opt, graph, cfg, lr,
+                                       UNROLLED_CLIP, mesh=mesh)
+
+        step()
+        res, seconds, launches = _counted(step, device)
+        out[case] = dict(seconds=seconds, loss=res.loss,
+                         grad_norm=res.grad_norm, launches=launches,
+                         expected=(mp_per_step(cfg) * cfg.k,) * 2)
+    return out
+
+
+def job_nccl_step(samples: list, device: str) -> dict:
+    """On a one-rank NCCL world: the dp step (its flat all-reduce through
+    NCCL) against ``train_step`` on the same batch."""
+    from psignn_tpu_torch.graphs import batch_graphs
+    res, seconds, launches, grads, (_, cfg, _, _, mesh) = \
+        _dp_psignn_step(samples, device, DIST_CMP_OVERRIDES)
+    graph = batch_graphs(samples, device=device)
+    model, cfg, init = trained_model(device, DIST_CMP_OVERRIDES)
+    plain, _ = step_from(model, cfg, init, graph, seed=7 + mesh.rank)
+    pgrads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+    return dict(backend=mesh.backend, seconds=seconds, launches=launches,
+                expected_launches=expected_launches(res, cfg),
+                dp=dict(loss=res.loss, losses=res.losses,
+                        grads={k: v.numpy() for k, v in grads.items()}),
+                plain=dict(loss=plain.loss, losses=plain.losses,
+                           grads={k: v.numpy() for k, v in pgrads.items()}))
+
+
+def job_partitioned_train_step(samples: list, device: str) -> dict:
+    """dp 2 × parts 2: one partitioned train step on the card, then the same
+    step on the CPU, each from the trained weights with both solves at the
+    f32 floor; the rank's probe from one CPU generator on both.  On the
+    card the rank's launches follow ``expected_launches`` from its own
+    solves' calls."""
+    from psignn_tpu_torch.dist import (make_partitioned_train_step,
+                                       multihost, stack_partitioned_graphs)
+    from psignn_tpu_torch.train import make_optimizers
+    out = {}
+    for label, dev in (("gpu", device), ("cpu", "cpu")):
+        mesh = multihost.global_mesh(2, 2, dev)
+        model, cfg, _ = trained_model(dev, DIST_CMP_OVERRIDES)
+        pg = stack_partitioned_graphs(samples, mesh)
+        step = make_partitioned_train_step(cfg, mesh, TRAIN_JAC_WEIGHT,
+                                           TRAIN_CLIP)
+        opts = make_optimizers(model, *TRAIN_LRS)
+        gen = torch.Generator().manual_seed(11 + mesh.rank)
+        res, seconds, launches = _counted(
+            lambda: step(model, opts, pg, gen, *TRAIN_LRS), dev)
+        out[label] = dict(
+            loss=res.loss, losses=res.losses, grad_norm=res.grad_norm,
+            fw=stats(res.fw), bw=stats(res.bw), seconds=seconds,
+            launches=launches,
+            expected_launches=expected_launches(res, cfg), n_loc=pg.n_loc,
+            halo=pg.halo,
+            grads={k: p.grad.detach().cpu().numpy()
+                   for k, p in model.named_parameters()})
+    return out
+
+
+def _rcm(sample: dict) -> dict:
+    from psignn_tpu_torch.dist.partition import (apply_node_permutation,
+                                                 rcm_permutation)
+    return apply_node_permutation(sample, rcm_permutation(
+        sample["senders"], sample["receivers"], sample["x"].shape[0]))
+
+
+def single_request(sample: dict, device,
+                   overrides: dict = DIST_OVERRIDES) -> dict:
+    """The single-process request on ``sample``."""
+    from psignn_tpu_torch.deq import fixed_point_forward
+    from psignn_tpu_torch.graphs import batch_graphs
+    from psignn_tpu_torch.ops import residual_loss
+    model, cfg, _ = trained_model(device, overrides)
+    g = batch_graphs([sample], device=device)
+
+    def run():
+        with torch.no_grad():
+            h0 = model.encoder(g.x) * g.fnode_mask
+            out = fixed_point_forward(model.function, h0, g, cfg.deq)
+            u = model.decoder(out.result) * g.fnode_mask
+            return out, u, float(residual_loss(u, g))
+
+    (out, u, res), seconds, launches = _counted(run, device)
+    return dict(u=u.cpu().numpy(), nstep=out.nstep, lowest=out.lowest,
+                residual=res, rel_trace=out.rel_trace.numpy(),
+                seconds=seconds, launches=launches)
+
+
+def compare_partitioned(ranks: list, single: dict, n_nodes: int) -> dict:
+    """The partitioned request (its ranks' results) against the single
+    process's, within the DIST_* limits; raises on disagreement."""
+    parts = sorted(ranks, key=lambda r: r["part"])
+    u = np.concatenate([r["u"] for r in parts])
+    r0 = parts[0]
+    same = {(r["nstep"], r["lowest"], r["residual"]) for r in parts}
+    # the residual of the later of the two solves' best steps that both
+    # took: Picard's trace holds step n at n, Broyden's at n − 1
+    n = min(r0["nstep"], single["nstep"])
+    at = n - (DIST_SOLVER != "forward_iteration")
+    step_rel = abs(r0["rel_trace"][at] - single["rel_trace"][at]) \
+        / single["rel_trace"][at]
+    u_ok = bool(np.allclose(u[:n_nodes], single["u"], rtol=DIST_U_RTOL,
+                            atol=DIST_U_ATOL) and not u[n_nodes:].any())
+    res_rel = abs(r0["residual"] - single["residual"]) / single["residual"]
+    rec = dict(parts=len(parts), n_loc=r0["n_loc"], halo=r0["halo"],
+               backend=r0["backend"],
+               nstep=r0["nstep"], single_nstep=single["nstep"],
+               lowest=r0["lowest"], single_lowest=single["lowest"],
+               common_step=n, common_step_rel_diff=float(step_rel),
+               u_max_abs_diff=float(np.abs(u[:n_nodes] - single["u"]).max()),
+               u_scale=float(np.abs(single["u"]).max()),
+               residual=r0["residual"], single_residual=single["residual"],
+               residual_rel_diff=res_rel,
+               seconds=[r["seconds"] for r in parts],
+               single_seconds=single["seconds"],
+               calls=[r["calls"] for r in parts],
+               fwd_launches=[r["launches"][0] for r in parts],
+               expected_fwd_launches=[2 * r["calls"] for r in parts])
+    if (len(same) != 1 or abs(r0["nstep"] - single["nstep"]) > DIST_NSTEP_SLACK
+            or step_rel > DIST_LOWEST_RTOL or not u_ok
+            or res_rel > DIST_RES_RTOL
+            or rec["fwd_launches"] != rec["expected_fwd_launches"]):
+        raise RuntimeError(f"the partitioned request disagrees: {rec}")
+    return rec
+
+
+def _step_agreement(gpu: dict, cpu: dict) -> dict:
+    """Loss entries and each parameter's gradient of two steps, relative."""
+    keys = ("residual_loss", "jacobian_loss", "encoder_loss",
+            "autoencoder_loss", "mse_loss")
+    loss_rel = {k: abs(gpu["losses"][k] - cpu["losses"][k])
+                / max(abs(cpu["losses"][k]), 1e-30) for k in keys}
+    grad_rel = {k: float(np.linalg.norm(gpu["grads"][k] - cpu["grads"][k])
+                         / max(np.linalg.norm(cpu["grads"][k]), 1e-30))
+                for k in cpu["grads"]}
+    return dict(max_loss_rel_diff=max(loss_rel.values()),
+                worst_loss=max(loss_rel, key=loss_rel.get),
+                max_grad_rel_diff=max(grad_rel.values()),
+                worst_grad=max(grad_rel, key=grad_rel.get),
+                gpu_loss=gpu["loss"], cpu_loss=cpu["loss"],
+                loss_rtol=CMP_LOSS_RTOL, grad_rtol=CMP_GRAD_RTOL)
+
+
+def _agreed(rec: dict) -> bool:
+    return (rec["max_loss_rel_diff"] <= CMP_LOSS_RTOL
+            and rec["max_grad_rel_diff"] <= CMP_GRAD_RTOL)
+
+
+def phase_dist(sample, built, device, smi: str, seconds: dict) -> dict:
+    """Every multi-rank path (phases ``dist_partitioned``,
+    ``dist_edge_mp``, ``dist_train_step``, ``dist_partitioned_train_step``)
+    in three worlds on the card: 2 gloo ranks, 1 NCCL rank, 4 gloo ranks.
+    ``sample`` is the headline mesh's, ``built`` the 50-mesh batches'
+    samples.  Returns each path's (forward, backward) launches, summed
+    over its ranks."""
+    # every rank on the card that ``device`` names (the CPU: a rehearsal)
+    card = device.type == "cuda"
+    rank_dev, one_rank = ("cuda:0", "nccl") if card else ("cpu", "gloo")
+    t0 = time.perf_counter()
+    rcm = _rcm(sample)
+    n_nodes = rcm["x"].shape[0]
+    single = single_request(rcm, device)
+    cmp_samples = train_samples(CMP_MESHES, 1)
+    two = [_rcm(s) for s in train_samples(2, 1)]
+    seconds["dist_setup"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gloo2 = dist_world(2, "gloo", [
+        ("job_partitioned", dict(sample=rcm, parts=2, device=rank_dev)),
+        ("job_edge_mp", dict(sample=sample, device=rank_dev)),
+        ("job_dp_train_step", dict(samples=built[("psignn", "dirichlet")],
+                                   cmp_samples=cmp_samples,
+                                   device=rank_dev)),
+        ("job_dp_unrolled", dict(samples={
+            "psignn": built[("psignn", "dirichlet")],
+            "dss": built[("dss", "dirichlet")]}, device=rank_dev))],
+        rank_dev)
+    seconds["dist_gloo2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = dist_world(1, one_rank, [
+        ("job_partitioned", dict(sample=rcm, parts=1, device=rank_dev)),
+        ("job_nccl_step", dict(samples=cmp_samples, device=rank_dev))],
+        rank_dev)
+    seconds["dist_nccl1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo4 = dist_world(4, "gloo", [
+        ("job_partitioned_train_step", dict(samples=two, device=rank_dev))],
+        rank_dev)
+    seconds["dist_gloo4"] = time.perf_counter() - t0
+
+    launches = {}
+    # dist_partitioned: 2 gloo ranks, then 1 NCCL rank
+    for name, ranks in (("dist_partitioned", [r[0] for r in gloo2]),
+                        ("dist_partitioned_nccl", [nccl[0]])):
+        rec = compare_partitioned(ranks, single, n_nodes)
+        emit(name, card=smi, n_nodes=n_nodes, overrides=DIST_OVERRIDES,
+             **rec)
+        launches[name] = (sum(rec["fwd_launches"]), 0)
+    # dist_edge_mp: 2 ranks, each its half of the edges
+    for direction in ("to", "from"):
+        recs = [r[1][direction] for r in gloo2]
+        rec = dict(card=smi, direction=direction, ranks=len(recs),
+                   n_nodes=n_nodes, **{k: [r[k] for r in recs] for k in
+                                       ("max_abs_err", "scale", "seconds",
+                                        "launches", "shard_edges")})
+        emit("dist_edge_mp", **rec)
+        if any(r["max_abs_err"] > KERNEL_REL_TOL * max(1.0, r["scale"])
+               or r["launches"] != (1, 0) for r in recs):
+            raise RuntimeError(f"dist_edge_mp failed: {rec}")
+    launches["dist_edge_mp"] = (2 * len(gloo2), 0)
+    # dist_train_step: the 50-mesh dp step, its 2-mesh card-vs-CPU step
+    steps = [r[2] for r in gloo2]
+    agree = _step_agreement(steps[0]["cmp_gpu"], steps[0]["cmp_cpu"])
+    for st in steps:
+        emit("dist_train_step", card=smi, n_meshes=TRAIN_MESHES,
+             **{k: v for k, v in st.items() if not k.startswith("cmp_")})
+    emit("dist_train_step_cpu_agreement", n_meshes=CMP_MESHES,
+         overrides=DIST_CMP_OVERRIDES, **agree)
+    if (not _agreed(agree) or any(
+            tuple(st["launches"]) != tuple(st["expected_launches"])
+            or not finite(st["loss"], st["grad_norm"]) for st in steps)
+            or len({st["loss"] for st in steps}) != 1):
+        raise RuntimeError(f"dist_train_step failed: {steps}, {agree}")
+    launches["dist_train_step"] = tuple(
+        sum(st["launches"][i] for st in steps) for i in (0, 1))
+    for case in ("dss", "dsgps"):
+        recs = [r[3][case] for r in gloo2]
+        emit("dist_unrolled_train_step", card=smi, case=case,
+             ranks=len(recs), seconds=[r["seconds"] for r in recs],
+             loss=recs[0]["loss"], grad_norm=recs[0]["grad_norm"],
+             launches=[r["launches"] for r in recs],
+             expected=recs[0]["expected"])
+        if any(tuple(r["launches"]) != tuple(r["expected"])
+               or not finite(r["loss"], r["grad_norm"]) for r in recs):
+            raise RuntimeError(f"dist_unrolled_train_step {case}: {recs}")
+        launches["dist_unrolled_" + case] = tuple(
+            sum(r["launches"][i] for r in recs) for i in (0, 1))
+    # the one-rank NCCL dp step against train_step
+    st = nccl[1]
+    agree = _step_agreement(st["dp"], st["plain"])
+    emit("dist_train_step_nccl", card=smi, backend=st["backend"],
+         seconds=st["seconds"], launches=st["launches"],
+         expected_launches=st["expected_launches"], **agree)
+    if (st["backend"] != one_rank or not _agreed(agree)
+            or tuple(st["launches"]) != tuple(st["expected_launches"])):
+        raise RuntimeError(f"dist_train_step_nccl failed: {agree}")
+    launches["dist_train_step_nccl"] = tuple(st["launches"])
+    # dist_partitioned_train_step: dp 2 × parts 2, card against CPU
+    ranks = [r[0] for r in gloo4]
+    agree = _step_agreement(ranks[0]["gpu"], ranks[0]["cpu"])
+    rec = dict(card=smi, layout=[2, 2], n_loc=[r["gpu"]["n_loc"]
+                                                for r in ranks],
+               halo=[r["gpu"]["halo"] for r in ranks],
+               seconds=[r["gpu"]["seconds"] for r in ranks],
+               cpu_seconds=[r["cpu"]["seconds"] for r in ranks],
+               fw=[r["gpu"]["fw"] for r in ranks],
+               bw=[r["gpu"]["bw"] for r in ranks],
+               launches=[r["gpu"]["launches"] for r in ranks],
+               expected_launches=[r["gpu"]["expected_launches"]
+                                  for r in ranks],
+               grad_norm=ranks[0]["gpu"]["grad_norm"], **agree)
+    emit("dist_partitioned_train_step", **rec)
+    if (not _agreed(agree) or any(
+            tuple(r["gpu"]["launches"]) != tuple(r["gpu"]["expected_launches"])
+            for r in ranks)
+            or len({r["gpu"]["loss"] for r in ranks}) != 1):
+        raise RuntimeError(f"dist_partitioned_train_step failed: {rec}")
+    launches["dist_partitioned_train_step"] = tuple(
+        sum(r["gpu"]["launches"][i] for r in ranks) for i in (0, 1))
+    return launches
+
+
+
+
 def device_breakdown(run, top: int = 8, ranges=()) -> dict:
     """One more run of ``run`` under ``torch.profiler``: the device's kernel
     time in all and by kernel name, and the busy share of the unprofiled
@@ -1643,6 +2182,7 @@ def device_breakdown(run, top: int = 8, ranges=()) -> dict:
 
 
 def main() -> None:
+    from psignn_tpu_torch.graphs import batch_graphs
     seconds = {}
 
     def timed(name, fn, *args, **kw):
@@ -1656,12 +2196,14 @@ def main() -> None:
     timed("build", phase_build)
     graph, sample = timed("graphs", headline_graph, device)
     # the 50-mesh batches by (sample form, variant)
-    built = {}
+    built, built_samples = {}, {}
     for form, variant in (("psignn", "dirichlet"), ("psignn", "mixed"),
                           ("dss", "dirichlet")):
         t0 = time.perf_counter()
-        g = train_graph(TRAIN_MESHES, 0, device, variant, form)
+        chunk = train_samples(TRAIN_MESHES, 0, variant, form)
+        g = batch_graphs(chunk, device=device)
         built[(form, variant)] = (g, time.perf_counter() - t0)
+        built_samples[(form, variant)] = chunk
     seconds["graphs"] += sum(t for _, t in built.values())
     (tgraph, tgraph_s), (mgraph, mgraph_s), (dgraph, _) = built.values()
     cases = mp_cases(graph, sample, tgraph, mgraph, dgraph, device)
@@ -1685,15 +2227,19 @@ def main() -> None:
     zoo = timed("zoo", phase_zoo, device)
     iterative = timed("iterative", phase_iterative, device)
     several = timed("several_init", phase_several_init, device)
+    dist = timed("dist", phase_dist, sample, built_samples, device, smi,
+                 seconds)
     trainer = timed("trainer", phase_trainer, device)
     emit("seconds", **seconds)
     # each path's launches, counted from 0 just before it ran
     fwd["launches_by_path"] = dict(
         slice=fwd["launches"], stacked_train_step=stacked[0],
         lowrank=lowrank, zoo=zoo, iterative=iterative, several_init=several,
+        **{path: n[0] for path, n in dist.items()},
         **{"trainer_" + run: n[0] for run, n in trainer.items()})
     bwd["launches_by_path"] = dict(
         train_step=bwd["launches"], stacked_train_step=stacked[1],
+        **{path: n[1] for path, n in dist.items() if n[1]},
         **{"trainer_" + run: n[1] for run, n in trainer.items()})
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)
     print(smi, flush=True)

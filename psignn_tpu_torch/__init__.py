@@ -15,7 +15,8 @@ package so each counterpart is easy to find:
   ops      — message passing, SpMV and BC-encoded residuals, masked means
   solvers  — Picard, Anderson, Broyden (+ Armijo line search, capped or
              bfloat16 rank memory), each also as per-graph lanes of one
-             batch; Newton and Newton-Krylov not yet ported
+             batch, or split over ranks (the ``reduce`` / ``sync``
+             hooks); Newton and Newton-Krylov not yet ported
   deq      — forward solve, implicit backward, Jacobian regularisers
   models   — Ψ-GNN, DS-GPS (Dirichlet and mixed) and DSS (Dirichlet):
              inference, the iterate traces and the training forwards
@@ -25,7 +26,10 @@ package so each counterpart is easy to find:
              factory and loader
   kernels  — the CUDA fused message-passing kernels and plain versions
   train    — optimizers, the train steps, checkpoints, the trainer
-  cli      — the training command line
+  dist     — several devices over ``torch.distributed``, one process a
+             rank: data parallelism, edge-sharded message passing, the
+             halo-partitioned solve and train step, the rank launcher
+  cli      — the training command line (``--num_devices``)
   eval     — per-graph metrics, the test-split table, the
              growing-geometry sweep, the out-of-distribution geometry zoo
              and the several-initialisations study

@@ -1,5 +1,5 @@
 """Training CLI of the port: Ψ-GNN, DS-GPS and DSS, Dirichlet or mixed
-(DSS: Dirichlet only), one device.
+(DSS: Dirichlet only), on one device or data-parallel over several.
 
 Port of ``psignn_tpu/cli/main.py`` for the paths the port has::
 
@@ -32,8 +32,10 @@ else, so that it never deletes files it did not write.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import shutil
+from typing import Optional
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -94,8 +96,9 @@ def get_parser() -> argparse.ArgumentParser:
                    help="mixed dsgps: scale update_neumann's output layer "
                         "at init (1.0 = reference Xavier; about 0.1 starts "
                         "the ungated Neumann recurrence contractive)")
-    # devices (refused unless 1: not yet ported) and Broyden's rank memory
-    p.add_argument("--num_devices", type=int, default=1)
+    # devices and Broyden's rank memory
+    p.add_argument("--num_devices", type=int, default=1,
+                   help="data-parallel ranks (0: every local GPU)")
     p.add_argument("--lowrank_bf16", action="store_true",
                    help="store Broyden's rank-1 pairs in bfloat16")
     p.add_argument("--lowrank_max_rank", type=int, default=0,
@@ -120,16 +123,66 @@ def get_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(p: argparse.ArgumentParser, args) -> None:
     """``p.error`` on any flag value whose path the port does not have."""
-    unported = [
-        (args.solver in ("newton", "newton_krylov"),
-         f"--solver {args.solver}"),
-        (args.num_devices != 1, f"--num_devices {args.num_devices}"),
-    ]
-    bad = [name for cond, name in unported if cond]
-    if bad:
-        p.error(f"not yet ported: {', '.join(bad)}")
+    if args.solver in ("newton", "newton_krylov"):
+        p.error(f"not yet ported: --solver {args.solver}")
     if args.family == "dss" and args.variant != "dirichlet":
         p.error("--family dss has a Dirichlet variant only")
+
+
+@dataclasses.dataclass(frozen=True)
+class RankPlan:
+    """How the ranks of a run are laid out: ``n`` ranks (1: no data
+    parallelism), ``joined`` when torchrun started them, the group's
+    ``backend`` and the ``device`` option of every rank (``None``: rank
+    r's own card, ``cuda:<local rank>``)."""
+    n: int
+    joined: bool
+    backend: str
+    device: Optional[str]
+
+    def rank_device(self, rank: int) -> Optional[str]:
+        if self.n == 1 or self.device is not None:
+            return self.device
+        local = int(os.environ.get("LOCAL_RANK", rank)) if self.joined \
+            else rank
+        return f"cuda:{local}"
+
+
+def rank_plan(p: argparse.ArgumentParser, args) -> RankPlan:
+    """The ranks of ``--num_devices`` and ``--device``; ``p.error`` on a
+    layout that cannot run."""
+    import torch
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    joined = world > 1
+    n = args.num_devices
+    device = args.device
+    if n < 0:
+        p.error(f"--num_devices {n} is negative")
+    if joined:
+        if n not in (0, 1, world) or (n == 1 and world > 1):
+            p.error(f"--num_devices {n} in a launch of {world} processes")
+        n = world
+    elif n == 0:
+        if device == "cpu":
+            p.error("--num_devices 0 means every local GPU; with --device "
+                    "cpu give a count")
+        n = torch.cuda.device_count()
+        if n == 0:
+            p.error("--num_devices 0: this machine has no GPU")
+    if n > 1 and args.stacked_batch and args.family == "psignn":
+        p.error("--stacked_batch and --num_devices > 1 exclude each other "
+                "(one DEQ solve per mesh is not data-parallel, as in JAX)")
+    if n == 1:
+        return RankPlan(1, False, "", device)
+    if device is None or device == "cuda":
+        if not joined and n > torch.cuda.device_count():
+            p.error(f"--num_devices {n}: {torch.cuda.device_count()} GPUs "
+                    "here; several ranks share one card only with "
+                    "--device cuda:K")
+        return RankPlan(n, joined, "nccl", None)
+    if device == "cpu" or device.startswith("cuda:"):
+        return RankPlan(n, joined, "gloo", device)
+    p.error(f"--device {device}: give cpu, cuda or cuda:K")
 
 
 def gradient_clip(args) -> float:
@@ -164,9 +217,8 @@ def build_model_cfg(args):
 RUN_OUTPUTS = ("ckpt", "logs")
 
 
-def clear_results(p: argparse.ArgumentParser, path: str) -> None:
-    """Delete an earlier run's outputs in ``path``; ``p.error`` if ``path``
-    holds anything the trainer does not write."""
+def foreign_results(p: argparse.ArgumentParser, path: str) -> None:
+    """``p.error`` if ``path`` holds anything the trainer does not write."""
     if not os.path.exists(path):
         return
     foreign = sorted(set(os.listdir(path)) - set(RUN_OUTPUTS))
@@ -174,21 +226,75 @@ def clear_results(p: argparse.ArgumentParser, path: str) -> None:
         p.error(f"--path_results {path} holds {', '.join(foreign)}, which "
                 f"a training run does not write; give a new or empty "
                 f"directory, or --resume")
+
+
+def clear_results(p: argparse.ArgumentParser, path: str) -> None:
+    """Delete an earlier run's outputs in ``path``; ``p.error`` if ``path``
+    holds anything the trainer does not write."""
+    foreign_results(p, path)
     for sub in RUN_OUTPUTS:
         shutil.rmtree(os.path.join(path, sub), ignore_errors=True)
 
 
-def main(argv=None):
+def main(argv=None) -> None:
+    """Train as the flags say."""
     p = get_parser()
     args = p.parse_args(argv)
     refuse_unported(p, args)
+    plan = rank_plan(p, args)
+    if plan.n > 1 and not plan.joined:
+        from ..dist import multihost
+        if not args.resume:
+            foreign_results(p, args.path_results)
+        if plan.device and plan.device.startswith("cuda:"):
+            print(f"--device {plan.device}: {plan.n} ranks share one card "
+                  "over gloo, their collectives staged through the host",
+                  flush=True)
+        if plan.device != "cpu":
+            # build the kernels once, here, rather than on every rank
+            from ..kernels import build
+            for name in ("fused_mp_fwd", "fused_mp_bwd"):
+                build.build(name)
+        init = f"tcp://127.0.0.1:{multihost.free_port()}"
+        multihost.spawn(_rank_main, plan.n, (args, plan, init))
+        print("Training finished")
+        return
+    rank = int(os.environ.get("RANK", "0")) if plan.joined else 0
+    if plan.joined:
+        _join(plan, rank, None)
+    _train(p, args, plan, rank)
+    if rank == 0:
+        print("Training finished")
 
+
+def _join(plan: RankPlan, rank: int, init_method: Optional[str]) -> None:
+    """Join the run's process group as ``rank`` (on its card first)."""
+    import torch
+
+    from ..dist import multihost
+    device = plan.rank_device(rank)
+    if device is not None and device.startswith("cuda"):
+        torch.cuda.set_device(torch.device(device))
+    multihost.initialize(plan.backend, init_method, plan.n, rank)
+
+
+def _rank_main(rank: int, args, plan: RankPlan, init_method: str) -> None:
+    """One spawned rank of ``--num_devices``."""
+    _join(plan, rank, init_method)
+    _train(get_parser(), args, plan, rank)
+
+
+def _train(p: argparse.ArgumentParser, args, plan: RankPlan,
+           rank: int) -> None:
     from ..data.reader import GraphLoader, load_dataset, split_dataset
     from ..train import Trainer, TrainConfig
 
-    if not args.resume:
-        clear_results(p, args.path_results)
-    os.makedirs(args.path_results, exist_ok=True)
+    if rank == 0:           # only rank 0 clears and writes
+        if not args.resume:
+            clear_results(p, args.path_results)
+        os.makedirs(args.path_results, exist_ok=True)
+    device = plan.rank_device(rank)
+    shard = (dict(n_devices=plan.n, rank=rank) if plan.n > 1 else {})
 
     samples = load_dataset(args.path_dataset, family=args.family,
                            variant=args.variant, stats=args.stats,
@@ -198,9 +304,9 @@ def main(argv=None):
     stacked = args.stacked_batch and args.family == "psignn"
     loader_train = GraphLoader(train, batch_size=args.batch_size,
                                shuffle=True, seed=args.seed,
-                               device=args.device, stacked=stacked)
+                               device=device, stacked=stacked, **shard)
     loader_val = GraphLoader(val, batch_size=args.batch_size,
-                             device=args.device, stacked=stacked)
+                             device=device, stacked=stacked, **shard)
     cfg = TrainConfig(
         family=args.family, model_cfg=build_model_cfg(args),
         max_epochs=args.max_epochs, lr=args.lr, lr_deq=args.lr_deq,
@@ -209,15 +315,14 @@ def main(argv=None):
         gradient_clip=gradient_clip(args), jac_weight=args.jac_weight,
         min_loss_save=args.min_loss_save, path_results=args.path_results,
         seed=args.seed, val_sradius=bool(args.val_sradius),
-        stacked_batch=stacked,
+        data_parallel=plan.n > 1, stacked_batch=stacked,
         spike_guard=args.spike_guard, spike_factor=args.spike_factor,
-        spike_patience=args.spike_patience, device=args.device)
+        spike_patience=args.spike_patience, device=device)
 
     trainer = Trainer(cfg, loader_train, loader_val)
     if args.resume:
         trainer.load_model(args.resume)
     trainer.train_model()
-    print("Training finished")
 
 
 if __name__ == "__main__":

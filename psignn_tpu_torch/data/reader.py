@@ -22,7 +22,10 @@ both packages see the same batches; ``stacked=True`` pads a short last
 batch by cyclic repetition of its samples, as the JAX loader's stacked
 batches are padded (``reader.py:358-377``).  ``dtype="bfloat16"`` (the
 ``precision`` of ``load_dataset``) gives the JAX loader's bfloat16
-samples, carried as float32 (``_caster``).
+samples, carried as float32 (``_caster``).  ``n_devices`` > 1 with
+``rank`` gives one data-parallel rank its shard of every batch, dealt as
+the JAX loader's ``_build_sharded`` deals it (``shard_samples``): every
+rank shuffles with the same seed and rank d's shard is JAX's shard d.
 """
 
 from __future__ import annotations
@@ -292,13 +295,38 @@ def split_dataset(samples: Sequence, family: str = "psignn",
     return (train, last, mid) if family == "dss" else (train, mid, last)
 
 
+def _empty_sample(template: GraphSample) -> GraphSample:
+    """A zero-node, zero-edge sample with the template's field widths."""
+    return {k: np.zeros((0,) + np.asarray(v).shape[1:], np.asarray(v).dtype)
+            for k, v in template.items()}
+
+
+def shard_samples(chunk: Sequence[GraphSample], batch_size: int,
+                  n_devices: int) -> List[List[GraphSample]]:
+    """One batch's samples dealt over ``n_devices`` data-parallel ranks as
+    JAX's ``GraphLoader._build_sharded`` deals them (``reader.py:
+    379-409``): a chunk shorter than ``n_devices`` is first repeated
+    cyclically; then it is padded with empty samples to
+    ``ceil(batch_size / n)·n`` and dealt round-robin, so every shard holds
+    at least one real sample (its losses are means over its own nodes) and
+    no sample is dropped."""
+    target = -(-batch_size // n_devices) * n_devices
+    chunk = list(chunk)
+    if len(chunk) < n_devices:
+        chunk = [chunk[i % len(chunk)] for i in range(n_devices)]
+    chunk += [_empty_sample(chunk[0])] * (target - len(chunk))
+    return [chunk[d::n_devices] for d in range(n_devices)]
+
+
 @dataclasses.dataclass
 class GraphLoader:
     """Minibatches of concatenated ``Graph``s on ``device`` (default:
     ``default_device()``).  With ``shuffle``, epoch k deals the samples in
     the order of ``np.random.RandomState(seed + k)``.  With ``stacked``
     (batches for per-graph solves), a short last batch is filled up to
-    ``batch_size`` graphs by repeating its own samples cyclically."""
+    ``batch_size`` graphs by repeating its own samples cyclically.  With
+    ``n_devices`` > 1, each batch is rank ``rank``'s shard of it
+    (``shard_samples``)."""
 
     samples: List[GraphSample]
     batch_size: int = 50
@@ -307,10 +335,18 @@ class GraphLoader:
     drop_last: bool = False
     device: Optional[object] = None
     stacked: bool = False
+    n_devices: int = 0
+    rank: int = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self._epoch = 0
+        if self.n_devices > 1 and self.stacked:
+            raise ValueError("stacked batches are not dealt over ranks "
+                             "(JAX refuses --stacked_batch with data "
+                             "parallelism)")
+        if self.n_devices > 1 and not 0 <= self.rank < self.n_devices:
+            raise ValueError(f"rank {self.rank} of {self.n_devices}")
 
     def __len__(self):
         n = len(self.samples)
@@ -335,5 +371,8 @@ class GraphLoader:
         epoch = self._epoch
         self._epoch += 1
         for sel in self.batch_order(epoch):
-            yield batch_graphs([self.samples[j] for j in sel],
-                               device=self.device)
+            chunk = [self.samples[j] for j in sel]
+            if self.n_devices > 1:
+                chunk = shard_samples(chunk, self.batch_size,
+                                      self.n_devices)[self.rank]
+            yield batch_graphs(chunk, device=self.device)

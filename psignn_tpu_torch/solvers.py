@@ -44,9 +44,23 @@ iteration carries every lane's scalars.  With lanes, ``lowest``, ``nstep``,
 traces (threshold, G); ``keep_trace`` is not taken.  Broyden's line
 search runs per lane too, one step length each (``_armijo_lanes``).
 
+**Groups of ranks.** ``reduce`` and ``sync`` are the JAX solvers' hooks
+for a solve whose state is split over the ranks of a group (the
+partitioned solve of ``dist/partitioned.py``).  ``reduce(t)`` returns the
+tensor ``t`` of partial sums summed over the group; every inner product
+goes through it: the norms, the non-finite test, Anderson's Gram matrix,
+the line search's φ, Broyden's secant coefficients, its secant
+denominator and its eviction products.  The partials of one stage share
+one call, so that a Broyden step makes two.  Every scalar that steers a
+loop is read on the host only after it was reduced, so every rank of the
+group takes the same branch.  ``sync(go) -> bool`` is a global any() for
+ranks whose ``f`` holds collectives that span more than their group: the
+loop runs while any rank goes on, and a rank that has stopped evaluates
+each step still (its collectives keep step with the others') but keeps
+its state, as the JAX loops freeze their carries.  Lanes take neither.
+
 ``SolverResult.calls`` counts the evaluations of ``f``.  Newton and
-Newton-Krylov, and the ``reduce`` / ``sync`` hooks of the JAX solvers
-(which serve its multi-device solves), are not ported yet.
+Newton-Krylov are not ported yet.
 """
 
 from __future__ import annotations
@@ -136,22 +150,47 @@ def _lane_norm(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v, dim=1)
 
 
-def _no_lane_options(name: str, lanes, keep_trace: bool):
+def _no_lane_options(name: str, lanes, keep_trace: bool, reduce=None,
+                     sync=None):
     if lanes is not None and keep_trace:
         raise NotImplementedError(f"{name} with lanes takes no keep_trace")
+    if lanes is not None and (reduce is not None or sync is not None):
+        # JAX refuses --stacked_batch with data parallelism the same way
+        raise NotImplementedError(f"{name} with lanes takes no reduce or "
+                                  "sync")
+
+
+def _go(sync: Optional[Callable], cont: bool) -> bool:
+    """Whether a loop takes another step: ``cont``, or with ``sync`` the
+    global any() of every rank's ``cont``."""
+    return bool(cont) if sync is None else bool(sync(bool(cont)))
+
+
+def _summed(reduce: Optional[Callable], t: torch.Tensor) -> torch.Tensor:
+    """The partial sums ``t`` summed over the group (``t`` alone)."""
+    return t if reduce is None else reduce(t)
+
+
+def _norms(reduce: Optional[Callable], *vs: torch.Tensor) -> torch.Tensor:
+    """The 2-norms of the flat vectors ``vs``: each over the whole state
+    when it is split over a group (``reduce``), as √(Σ partial squares)."""
+    if reduce is None:
+        return torch.stack([torch.linalg.vector_norm(v) for v in vs])
+    return torch.sqrt(reduce(torch.stack([torch.dot(v, v) for v in vs])))
 
 
 def picard(f: Callable, x0: torch.Tensor, threshold: int = 50,
            eps: float = 1e-5, stop_mode: str = "rel",
-           keep_trace: bool = False,
-           lanes: Optional[Lanes] = None) -> SolverResult:
+           keep_trace: bool = False, lanes: Optional[Lanes] = None,
+           reduce: Optional[Callable] = None,
+           sync: Optional[Callable] = None) -> SolverResult:
     """Plain fixed-point iteration z ← f(z), stopped when the relative step
     ‖z_prev − z‖ / ‖z‖ is at most eps or after ``threshold`` steps; the
     reference ignores ``stop_mode`` here, and so does this port.  The
     result is the last iterate, ``nstep`` the number of steps after the
-    first evaluation."""
+    first evaluation.  ``reduce`` / ``sync``: see the module docstring."""
     del stop_mode
-    _no_lane_options("picard", lanes, keep_trace)
+    _no_lane_options("picard", lanes, keep_trace, reduce, sync)
     if lanes is not None:
         return _picard_lanes(f, x0, int(threshold), eps, lanes)
     f = _Counted(f)
@@ -161,22 +200,25 @@ def picard(f: Callable, x0: torch.Tensor, threshold: int = 50,
     abs_trace = np.zeros(T + 1, _F32)
     rel_trace = np.zeros(T + 1, _F32)
 
-    def step(z_prev, ite):
+    def step(z_prev):
         z = f(z_prev.reshape(shape)).reshape(-1)
-        ab, nz = _host(torch.linalg.vector_norm(z_prev - z),
-                       torch.linalg.vector_norm(z))
+        ab, nz = _host(*_norms(reduce, z_prev - z, z))
         with np.errstate(divide="ignore", invalid="ignore"):
             rel = _F32(ab / nz)
-        abs_trace[ite], rel_trace[ite] = ab, rel
-        return z, rel
+        return z, ab, rel
 
-    z, rel = step(x0.reshape(-1), 0)
+    z, abs_trace[0], rel = step(x0.reshape(-1))
+    rel_trace[0] = rel
     trace: List[torch.Tensor] = [x0.clone(), z.reshape(shape)] \
         if keep_trace else []
     ite = 0
-    while rel > eps32 and ite < T:
+    while _go(sync, rel > eps32 and ite < T):
+        z_new, ab, rel_new = step(z)
+        if not (rel > eps32 and ite < T):
+            continue                 # stopped: the state stays (sync)
         ite += 1
-        z, rel = step(z, ite)
+        z, rel = z_new, rel_new
+        abs_trace[ite], rel_trace[ite] = ab, rel
         if keep_trace:
             trace.append(z.reshape(shape))
 
@@ -243,17 +285,19 @@ ANDERSON_LAM = 1e-4
 
 def anderson(f: Callable, x0: torch.Tensor, threshold: int = 50,
              eps: float = 1e-3, stop_mode: str = "rel",
-             keep_trace: bool = False,
-             lanes: Optional[Lanes] = None) -> SolverResult:
+             keep_trace: bool = False, lanes: Optional[Lanes] = None,
+             reduce: Optional[Callable] = None,
+             sync: Optional[Callable] = None) -> SolverResult:
     """Anderson acceleration: each step mixes the last two evaluations
     F_i = f(X_i) with the weights α of the regularised least-squares
     problem min ‖Σ α_i (F_i − X_i)‖² + lam‖α‖², Σ α_i = 1, solved on the
     device as its 3×3 bordered normal equations, and x = Σ α_i F_i.
     ``rel = ‖g‖ / (1e-5 + ‖f(x)‖)``; the best iterate is the result,
-    ``nstep`` its step."""
+    ``nstep`` its step.  ``reduce`` / ``sync``: see the module docstring
+    (the Gram matrix is summed over the group)."""
     if stop_mode not in ("rel", "abs"):
         raise ValueError(stop_mode)
-    _no_lane_options("anderson", lanes, keep_trace)
+    _no_lane_options("anderson", lanes, keep_trace, reduce, sync)
     if lanes is not None:
         return _anderson_lanes(f, x0, int(threshold), eps, stop_mode, lanes)
     f = _Counted(f)
@@ -280,18 +324,19 @@ def anderson(f: Callable, x0: torch.Tensor, threshold: int = 50,
     rhs = torch.zeros(m + 1, dtype=dt, device=dev)
     rhs[0] = 1.0
 
-    k = 2
-    while k < T:
+    k, done = 2, False
+    while _go(sync, k < T and not done):
         G = F - X
-        H[1:, 1:] = G @ G.T + lam_eye
+        H[1:, 1:] = _summed(reduce, G @ G.T) + lam_eye
         alpha = torch.linalg.solve(H, rhs)[1:]
         xk = alpha @ F
         fk = f(xk.reshape(shape)).reshape(-1)
+        ab, nfk = _host(*_norms(reduce, fk - xk, fk))
+        if not (k < T and not done):
+            continue                 # stopped: the state stays (sync)
         X[k % m] = xk
         F[k % m] = fk
 
-        ab, nfk = _host(torch.linalg.vector_norm(fk - xk),
-                        torch.linalg.vector_norm(fk))
         with np.errstate(divide="ignore", invalid="ignore"):
             rel = _F32(ab / _F32(_F32(1e-5) + nfk))
         diff = rel if stop_mode == "rel" else ab
@@ -303,8 +348,7 @@ def anderson(f: Callable, x0: torch.Tensor, threshold: int = 50,
             # the reference appends the running best each step
             trace[k - 1] = lowest_x.reshape(shape)
         k += 1
-        if diff < eps32:
-            break
+        done = diff < eps32
 
     return SolverResult(
         result=lowest_x.reshape(shape), lowest=float(lowest),
@@ -382,7 +426,9 @@ ARMIJO_AMIN = 1e-2
 
 
 def _armijo_line_search(g: Callable, x0: torch.Tensor, gx0: torch.Tensor,
-                        update: torch.Tensor):
+                        update: torch.Tensor,
+                        reduce: Optional[Callable] = None,
+                        sync: Optional[Callable] = None):
     """Armijo backtracking on φ(s) = ‖g(x0 + s·update)‖² with
     φ'(0) = −φ(0) (the reference's heuristic, solver.py:20-94): try s = 1,
     then the quadratic interpolant's minimiser, then cubic interpolation
@@ -390,29 +436,38 @@ def _armijo_line_search(g: Callable, x0: torch.Tensor, gx0: torch.Tensor,
     condition holds or the step falls below ``ARMIJO_AMIN`` (then s = 1).
     Returns (x_new, gx_new); each candidate costs one ``g`` and one host
     read.  The quadratic candidate is evaluated only when s = 1 fails: the
-    JAX loop evaluates it always and then ignores it."""
+    JAX loop evaluates it always and then ignores it.  φ and the
+    non-finite count are summed over the group (``reduce``); with
+    ``sync``, a rank that has accepted evaluates s = 1 again while another
+    still searches, and keeps its step."""
     F32 = _F32
     c1 = F32(ARMIJO_C1)
 
     def phi_eval(s):
         x = x0 + float(s) * update
         gx = g(x)
-        ph, nonfin = _host(torch.dot(gx, gx),
-                           (~torch.isfinite(gx)).sum().to(gx.dtype))
+        ph, nonfin = _host(*_summed(reduce, torch.stack(
+            [torch.dot(gx, gx), (~torch.isfinite(gx)).sum().to(gx.dtype)])))
         return (ph if nonfin == 0 else F32(np.inf)), x, gx
 
     with np.errstate(all="ignore"):
-        (phi0,) = _host(torch.dot(gx0, gx0))
+        (phi0,) = _host(_summed(reduce, torch.dot(gx0, gx0)))
         derphi0 = -phi0
         phi_1, x_1, gx_1 = phi_eval(F32(1.0))
-        if phi_1 <= phi0 + c1 * derphi0:
-            return x_1, gx_1
+        found = x_1, gx_1
+        searching = not phi_1 <= phi0 + c1 * derphi0
+        if not _go(sync, searching):
+            return found
         # quadratic interpolant's minimiser (solver.py:27)
         a0 = F32(1.0)
         a1 = F32(F32(-derphi0 / F32(2.0)) / (phi_1 - phi0 - derphi0))
         pa0 = phi_1
-        pa1, _, _ = phi_eval(a1)
-        while a1 > F32(ARMIJO_AMIN):
+        pa1, _, _ = phi_eval(a1 if searching else F32(1.0))
+        searching = searching and a1 > F32(ARMIJO_AMIN)
+        while _go(sync, searching):
+            if not searching:
+                phi_eval(F32(1.0))   # keeps step with the group (sync)
+                continue
             factor = a0 * a0 * (a1 * a1) * (a1 - a0)
             t1 = pa1 - phi0 - derphi0 * a1
             t0 = pa0 - phi0 - derphi0 * a0
@@ -422,13 +477,15 @@ def _armijo_line_search(g: Callable, x0: torch.Tensor, gx0: torch.Tensor,
                 / (F32(3.0) * A)
             pa2, x2, gx2 = phi_eval(a2)
             if pa2 <= phi0 + c1 * a2 * derphi0:
-                return x2, gx2
+                found, searching = (x2, gx2), False
+                continue
             # the halving safeguard, with φ kept from the unguarded α2
             # (solver.py:50-56)
             if (a1 - a2) > a1 / F32(2.0) or (F32(1.0) - a2 / a1) < F32(0.96):
                 a2 = a1 / F32(2.0)
             a0, a1, pa0, pa1 = a1, a2, pa1, pa2
-    return x_1, gx_1
+            searching = a1 > F32(ARMIJO_AMIN)
+    return found
 
 
 def _armijo_lanes(g: Callable, x0: torch.Tensor, gx0: torch.Tensor,
@@ -509,20 +566,30 @@ def _rounded(t: torch.Tensor, dtype) -> torch.Tensor:
     return t.to(dtype).float()
 
 
-def _rank_products(U, V, delta_x, rhs2):
-    """(ra, mv2) = ((U Δx)ᵀ V, (V rhs2ᵀ)ᵀ U) over the live pairs.  Pairs
-    stored narrower than x (bfloat16): the right-hand sides Δx, rhs2 and
-    the coefficient vectors are rounded to the storage type before each
-    product, and every product accumulates and returns float32, as JAX's
-    ``_lr_matmul`` with its casts (``solvers.py:278-285, 477-480``).  The
-    products themselves run on float32 copies of the rounded operands, so
-    that no bfloat16 matmul (which returns bfloat16) is involved."""
-    if U.dtype == delta_x.dtype:
-        return (U @ delta_x) @ V, (V @ rhs2.T).T @ U
-    lo, Uf, Vf = U.dtype, U.float(), V.float()
-    xtu = Uf @ _rounded(delta_x, lo)
-    vtx = Vf @ _rounded(rhs2, lo).T
-    return _rounded(xtu, lo) @ Vf, _rounded(vtx.T, lo) @ Uf
+def _rank_products(U, V, delta_x, rhs2, partials, reduce=None):
+    """(ra, mv2, partials) with ra = (U Δx)ᵀ V and mv2 = (V rhs2ᵀ)ᵀ U over
+    the live pairs.  Pairs stored narrower than x (bfloat16): the
+    right-hand sides Δx, rhs2 and the coefficient vectors are rounded to
+    the storage type before each product, and every product accumulates
+    and returns float32, as JAX's ``_lr_matmul`` with its casts
+    (``solvers.py:278-285, 477-480``).  The products themselves run on
+    float32 copies of the rounded operands, so that no bfloat16 matmul
+    (which returns bfloat16) is involved.  With ``reduce`` the coefficients
+    U Δx and V rhs2ᵀ are summed over the group between the two products,
+    in one call with the caller's other ``partials`` (a 1-D tensor of
+    partial sums), which come back summed (as they are, without)."""
+    lo = U.dtype
+    narrow = lo != delta_x.dtype
+    if narrow:
+        U, V = U.float(), V.float()
+        delta_x, rhs2 = _rounded(delta_x, lo), _rounded(rhs2, lo)
+    xtu, vtx = U @ delta_x, V @ rhs2.T
+    n = xtu.numel()
+    flat = _summed(reduce, torch.cat([xtu, vtx.reshape(-1), partials]))
+    xtu, vtx = flat[:n], flat[n:3 * n].reshape(n, 2)
+    if narrow:
+        xtu, vtx = _rounded(xtu, lo), _rounded(vtx, lo)
+    return xtu @ V, vtx.T @ U, flat[3 * n:]
 
 
 def _lane_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -549,7 +616,9 @@ def broyden(f: Callable, x0: torch.Tensor, threshold: int = 50,
             eps: float = 1e-3, stop_mode: str = "rel",
             keep_trace: bool = False, ls: bool = False, max_rank: int = 0,
             lowrank_dtype: Optional[torch.dtype] = None,
-            lanes: Optional[Lanes] = None) -> SolverResult:
+            lanes: Optional[Lanes] = None,
+            reduce: Optional[Callable] = None,
+            sync: Optional[Callable] = None) -> SolverResult:
     """Broyden quasi-Newton root finder for g(x) = f(x) − x.
 
     The inverse Jacobian is −I + U Vᵀ with one rank-1 pair per step
@@ -565,10 +634,10 @@ def broyden(f: Callable, x0: torch.Tensor, threshold: int = 50,
     evicted and the iterates are those of full memory, bit for bit.
     ``lowrank_dtype`` (``torch.bfloat16``) stores the pairs narrower; u and
     vᵀ are still computed in x's precision (``_rank_products``).  Neither
-    is on by default."""
+    is on by default.  ``reduce`` / ``sync``: see the module docstring."""
     if stop_mode not in ("rel", "abs"):
         raise ValueError(stop_mode)
-    _no_lane_options("broyden", lanes, keep_trace)
+    _no_lane_options("broyden", lanes, keep_trace, reduce, sync)
     if lanes is not None:
         return _broyden_lanes(f, x0, int(threshold), eps, stop_mode, ls,
                               max_rank, lowrank_dtype, lanes)
@@ -599,44 +668,54 @@ def broyden(f: Callable, x0: torch.Tensor, threshold: int = 50,
     prot_break = False
     trace: List[torch.Tensor] = [x0.clone()] if keep_trace else []
 
-    nstep = 0
-    while nstep < T:
+    nstep, stop = 0, False
+    while _go(sync, nstep < T and not stop):
+        live = nstep < T and not stop   # False: stopped, stepping (sync)
         if ls:
-            x_new, gx_new = _armijo_line_search(g, x, gx, update)
+            x_new, gx_new = _armijo_line_search(g, x, gx, update, reduce,
+                                                sync)
         else:
             x_new = x + update
             gx_new = g(x_new)
-        nstep += 1
-        k = nstep - 1                      # stored rank-1 pairs
-
-        norms = torch.stack([torch.linalg.vector_norm(gx_new),
-                             torch.linalg.vector_norm(gx_new + x_new)])
+        k = nstep                          # stored rank-1 pairs
 
         # rank-1 update, enqueued before the host read so the device has
         # the work in hand while the host waits
         delta_x = x_new - x
         delta_gx = gx_new - gx
-        live, slot = min(k, R_cap), k % R_cap
-        ra, mv2 = _rank_products(Us[:live], VTs[:live], delta_x,
-                                 torch.stack([delta_gx, gx_new]))
-        if k >= R_cap:
-            # the ring is full: evict the oldest pair, slot's, first
+        n_live, slot = min(k, R_cap), k % R_cap
+        evict = k >= R_cap                 # the ring is full
+        if evict:                          # the oldest pair, slot's, goes
             u_old, v_old = Us[slot].to(x.dtype), VTs[slot].to(x.dtype)
-            ra = ra - torch.dot(delta_x, u_old) * v_old
-            mv2 = mv2 - torch.stack([u_old * torch.dot(v_old, delta_gx),
-                                     u_old * torch.dot(v_old, gx_new)])
+        rhs2 = torch.stack([delta_gx, gx_new])
+        y = gx_new + x_new
+        parts = [torch.dot(gx_new, gx_new), torch.dot(y, y)]
+        if evict:
+            parts += [torch.dot(delta_x, u_old), torch.dot(v_old, delta_gx),
+                      torch.dot(v_old, gx_new)]
+        ra, mv2, sums = _rank_products(Us[:n_live], VTs[:n_live], delta_x,
+                                       rhs2, torch.stack(parts), reduce)
+        norms, dots = torch.sqrt(sums[:2]), sums[2:]
+        if evict:
+            ra = ra - dots[0] * v_old
+            mv2 = mv2 - torch.stack([u_old * dots[1], u_old * dots[2]])
         vT = -delta_x + ra                                     # rmatvec(Δx)
-        denom = torch.dot(vT, delta_gx)
         mv_dgx = -delta_gx + mv2[0]                            # matvec(Δg)
         mv_gx = -gx_new + mv2[1]                               # matvec(g_new)
+        vT_clean = torch.nan_to_num(vT, nan=0.0, posinf=0.0, neginf=0.0)
+        denom, vt_g = _summed(reduce, torch.stack(
+            [torch.dot(vT, delta_gx), torch.dot(vT_clean, gx_new)]))
         u = (delta_x - mv_dgx) / denom
-        vT = torch.nan_to_num(vT, nan=0.0, posinf=0.0, neginf=0.0)
         u = torch.nan_to_num(u, nan=0.0, posinf=0.0, neginf=0.0)
-        Us[slot] = u
-        VTs[slot] = vT
-        update = -(mv_gx + u * torch.dot(vT, gx_new))
+        new_update = -(mv_gx + u * vt_g)
 
         ab_t, den_t = norms.cpu().numpy()
+        if not live:
+            continue                 # stopped: the state stays (sync)
+        Us[slot] = u
+        VTs[slot] = vT_clean
+        update = new_update
+        nstep += 1
         ab = _F32(ab_t)
         rel = _F32(ab / _F32(den_t + _F32(1e-9)))
         diff, alt = (rel, ab) if stop_mode == "rel" else (ab, rel)
@@ -657,8 +736,7 @@ def broyden(f: Callable, x0: torch.Tensor, threshold: int = 50,
         prot = diff > stop_trace[0] * protect_thres
         prot_break |= bool(prot)
         x, gx = x_new, gx_new
-        if diff < eps32 or plateau or prot:
-            break
+        stop = diff < eps32 or plateau or prot
 
     # pad unvisited trace entries with the lowest value
     low_rel, low_abs = ((lowest, lowest_alt) if stop_mode == "rel"

@@ -1,5 +1,6 @@
 """Training: optimizers and schedulers, the train steps, checkpoints and the
-epoch-level trainer (Ψ-GNN, DS-GPS and DSS, one device)."""
+epoch-level trainer (Ψ-GNN, DS-GPS and DSS, on one device or
+data-parallel over several)."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
 from .optim import PlateauScheduler, make_adam, make_optimizers

@@ -9,6 +9,12 @@ Port of the two steps of ``psignn_tpu/train/trainer.py``:
 * ``unrolled_train_step`` (DS-GPS and DSS, ``:288-296``): loss = the
   model's ``train_loss``, backpropagated through the k-step unroll, one
   Adam.
+
+Given a data-parallel ``mesh`` (``dist.dp.make_mesh``), both steps run on
+the rank's shard and average the loss, the loss entries, the gradients
+and (Ψ-GNN) the adjoint solve's stats over the ranks in one all-reduce
+(``dist.dp.dp_value_and_grad``; JAX ``trainer.py:201-234``) before the
+clip and Adam, so every rank takes the same step.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import torch
 
 from ..deq import SolveStats
+from ..dist.dp import dp_value_and_grad
+from ..dist.multihost import Mesh
 from ..graphs import Graph
 from ..models.dsgps import DsgpsConfig, dsgps_forward
 from ..models.dss import dss_forward
@@ -45,6 +53,11 @@ def _host(loss: torch.Tensor, gnorm: torch.Tensor,
             dict(zip(losses, host[2:].tolist())))
 
 
+def _scalars(means: Dict[str, object]) -> Dict[str, float]:
+    """The 0-d entries of the ranks' mean losses (as ``_host`` keeps)."""
+    return {k: v for k, v in means.items() if isinstance(v, float)}
+
+
 def psignn_loss(losses: Dict[str, torch.Tensor],
                 jac_weight: float) -> torch.Tensor:
     return (losses["residual_loss"] + jac_weight * losses["jacobian_loss"]
@@ -55,14 +68,35 @@ def train_step(model: Psignn, opts: Sequence[torch.optim.Optimizer],
                graph: Graph, cfg: PsignnConfig, lrs: Sequence[float],
                clip: float, jac_weight: float,
                generator: torch.Generator,
-               stacked: bool = False) -> StepResult:
+               stacked: bool = False,
+               mesh: Optional[Mesh] = None) -> StepResult:
     """One step on ``graph``; ``opts`` and ``lrs`` are (function,
     autoencoder) as ``make_optimizers`` builds them.  ``stacked`` solves
     each graph of the batch on its own (``psignn_forward_stacked``); the
-    step's ``fw`` and ``bw`` then hold per-graph arrays."""
+    step's ``fw`` and ``bw`` then hold per-graph arrays.  With ``mesh``,
+    ``graph`` is the rank's shard and the step is data-parallel: the
+    losses and the solves' (lowest, nstep) are the ranks' means, ``calls``
+    the rank's own."""
     for opt in opts:
         opt.zero_grad(set_to_none=True)
     forward = psignn_forward_stacked if stacked else psignn_forward
+    if mesh is not None:
+        if stacked:
+            raise ValueError("per-graph solves are not data-parallel (JAX "
+                             "refuses --stacked_batch with data parallelism)")
+        outs = []
+
+        def loss_fn(m, g):
+            outs.append(forward(m, g, cfg, generator, training=True))
+            return (psignn_loss(outs[0].losses, jac_weight),
+                    outs[0].losses, outs[0].adjoint)
+
+        loss_f, scalars, bw = dp_value_and_grad(loss_fn, mesh, sink=True)(
+            model, graph)
+        gnorm = apply_gradients(model.parameters(), opts, lrs, clip)
+        fw = SolveStats(scalars["fw_lowest"], scalars["fw_nstep"],
+                        outs[0].fw.calls)
+        return StepResult(loss_f, _scalars(scalars), float(gnorm), fw, bw)
     out = forward(model, graph, cfg, generator, training=True)
     loss = psignn_loss(out.losses, jac_weight)
     loss.backward()
@@ -78,11 +112,22 @@ def unrolled_forward(model, graph: Graph, cfg):
 
 
 def unrolled_train_step(model, opt: torch.optim.Optimizer, graph: Graph,
-                        cfg, lr: float, clip: float) -> StepResult:
+                        cfg, lr: float, clip: float,
+                        mesh: Optional[Mesh] = None) -> StepResult:
     """One DS-GPS or DSS step on ``graph``: ``train_loss`` backpropagated
     through the unroll (one backward kernel launch per message passing on
-    the card), the joint clip, one Adam step at ``lr``, one host read."""
+    the card), the joint clip, one Adam step at ``lr``, one host read.
+    With ``mesh``, data-parallel as ``train_step``."""
     opt.zero_grad(set_to_none=True)
+    if mesh is not None:
+        def loss_fn(m, g):
+            out = unrolled_forward(m, g, cfg)
+            return out.losses["train_loss"], out.losses
+
+        loss_f, scalars, _ = dp_value_and_grad(loss_fn, mesh)(model, graph)
+        gnorm = apply_gradients(model.parameters(), [opt], [lr], clip)
+        return StepResult(loss_f, _scalars(scalars), float(gnorm), None,
+                          None)
     out = unrolled_forward(model, graph, cfg)
     loss = out.losses["train_loss"]
     loss.backward()

@@ -27,8 +27,17 @@ one device with one concatenated batch per step:
   ``GraphLoader(stacked=True)`` does.  The iteration logs then hold each
   step's means over the graphs, as the JAX trainer writes them.
 
+* ``data_parallel``: one process a rank (``dist.multihost``; the CLI's
+  ``--num_devices``), the loaders giving each rank its shard; the train
+  steps and the validation losses are averaged over the ranks (JAX
+  ``trainer.py:236-258``: validation drives the schedulers, early stopping
+  and the best checkpoint), so every rank takes the same decisions and
+  keeps the same parameters.  Only rank 0 writes logs and checkpoints.
+  The Hutchinson probes come from a generator seeded from (seed, rank),
+  as JAX folds the rank into its key.
+
 The loss and gradient plots are left out (the JAX trainer already runs
-without matplotlib).  ``data_parallel`` is not yet ported and raises.
+without matplotlib).
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..dist.dp import make_mesh
 from ..models.psignn import psignn_forward, psignn_forward_stacked
 from ..weights import FAMILIES
 from .checkpoint import (load_checkpoint, optimizer_state_from_numpy,
@@ -90,8 +100,9 @@ class Trainer:
         if config.family not in FAMILIES:
             raise ValueError(f"family must be one of {sorted(FAMILIES)}, "
                              f"not {config.family!r}")
-        if config.data_parallel:
-            raise NotImplementedError("data_parallel is not yet ported")
+        if config.data_parallel and config.stacked_batch:
+            raise ValueError("stacked_batch is not data-parallel (JAX "
+                             "refuses --stacked_batch with data parallelism)")
         if config.stacked_batch and config.family != "psignn":
             raise ValueError("stacked_batch solves Ψ-GNN's DEQ per graph; "
                              f"the {config.family} family has no solve")
@@ -104,12 +115,18 @@ class Trainer:
             FAMILIES[config.family]
         self.mc = config.model_cfg or cfg_cls()
         self.device = resolve_device(config.device)
+        # the data-parallel mesh of the world's ranks (one rank: None)
+        self.mesh = (make_mesh(device=self.device) if config.data_parallel
+                     else None)
+        rank = self.mesh.rank if self.mesh else 0
+        self.writer = rank == 0          # logs and checkpoints: rank 0 only
 
         self.path_ckpt = os.path.join(config.path_results, "ckpt")
         self.path_logs = os.path.join(config.path_results, "logs")
-        os.makedirs(self.path_ckpt, exist_ok=True)
-        os.makedirs(self.path_logs, exist_ok=True)
-        self._init_log_files()
+        if self.writer:
+            os.makedirs(self.path_ckpt, exist_ok=True)
+            os.makedirs(self.path_logs, exist_ok=True)
+            self._init_log_files()
 
         if model is None:
             model = model_cls(
@@ -133,13 +150,17 @@ class Trainer:
         self.lr_scale = 1.0          # halved by the spike guard
         self._spike_count = 0
         self.training_time = 0.0
-        # Hutchinson and power-method probes
-        self.generator = torch.Generator().manual_seed(config.seed + 1)
-        self._dump_model_config()
+        # Hutchinson and power-method probes, decorrelated over the ranks
+        self.generator = torch.Generator().manual_seed(
+            config.seed + 1 + 1_000_003 * rank)
+        if self.writer:
+            self._dump_model_config()
 
     # ------------------------------------------------------------------ setup
 
     def _log(self, name: str, text: str) -> None:
+        if not self.writer:
+            return
         with open(os.path.join(self.path_logs, name), "a") as f:
             f.write(text)
 
@@ -154,7 +175,8 @@ class Trainer:
     def _dump_model_config(self):
         n_params = sum(p.numel() for p in self.model.parameters())
         with open(os.path.join(self.path_logs, "model_config.csv"), "w") as f:
-            f.write(f"Number of devices used : 1 ({self.device}) \n\n")
+            n_dev = self.mesh.world if self.mesh else 1
+            f.write(f"Number of devices used : {n_dev} ({self.device}) \n\n")
             f.write("Includes {} train samples, {} val samples \n".format(
                 len(self.loader_train.samples), len(self.loader_val.samples)))
             f.write(f"Batch size {self.loader_train.batch_size} \n\n")
@@ -200,10 +222,12 @@ class Trainer:
             if self.psignn:
                 res = train_step(self.model, self.opts, graph, self.mc, lrs,
                                  c.gradient_clip, c.jac_weight,
-                                 self.generator, stacked=c.stacked_batch)
+                                 self.generator, stacked=c.stacked_batch,
+                                 mesh=self.mesh)
             else:
                 res = unrolled_train_step(self.model, self.opts[0], graph,
-                                          self.mc, lrs[0], c.gradient_clip)
+                                          self.mc, lrs[0], c.gradient_clip,
+                                          mesh=self.mesh)
             pending.append(res)
             if i in marks:
                 run, cumul = flush()
@@ -244,10 +268,16 @@ class Trainer:
                                               for k in LOSS_KEYS[1:]]))
             if self.psignn and self.c.val_sradius:
                 srads.append(out.losses["sradius"])
-        sums = torch.stack(vecs).sum(0).cpu().tolist()
-        if srads:
+        sums = torch.stack(vecs).sum(0)
+        srads = torch.stack(srads) if srads else sums[:0]
+        if self.mesh:           # the means over the ranks' shards
+            both = self.mesh.all_reduce(torch.cat([sums, srads]))
+            both = both / self.mesh.world
+            sums, srads = both[:len(sums)], both[len(sums):]
+        sums = sums.cpu().tolist()
+        if len(srads):
             self._log("spectral_radius.csv", "".join(
-                "\n{}".format(s) for s in torch.stack(srads).cpu().tolist()))
+                "\n{}".format(s) for s in srads.cpu().tolist()))
         for k, v in zip(LOSS_KEYS, sums):
             self.hist_val[k].append(v / n_batches)
         self._log("train_metrics.csv",
@@ -285,9 +315,9 @@ class Trainer:
             if improved:
                 self.min_loss_save = self.hist_val["residual_loss"][-1]
             checkpoint = self._make_checkpoint(epoch)
-            save_checkpoint(checkpoint, self.path_ckpt, "running_model")
+            self._save(checkpoint, "running_model")
             if improved:
-                save_checkpoint(checkpoint, self.path_ckpt, "best_model")
+                self._save(checkpoint, "best_model")
             lr_lines = ("\nCurrent Learning rate DEQ : {}"
                         "\nCurrent Learning rate AUTOENC : {}".format(
                             self.sched_deq.lr, self.sched_ae.lr)
@@ -303,9 +333,10 @@ class Trainer:
                           > c.spike_factor * self.min_loss_save)
                 self._spike_count = self._spike_count + 1 if spiked else 0
                 if self._spike_count >= c.spike_patience:
-                    best = os.path.join(self.path_ckpt, "best_model.ckpt")
-                    if os.path.exists(best):
-                        self._load_state(load_checkpoint(best))
+                    best = self._read_checkpoint(os.path.join(
+                        self.path_ckpt, "best_model.ckpt"), missing_ok=True)
+                    if best is not None:
+                        self._load_state(best)
                     self.lr_scale *= 0.5
                     self._spike_count = 0
                     self._log("train_metrics.csv",
@@ -316,13 +347,29 @@ class Trainer:
                                   self.lr_scale))
                     # a restart before the next epoch resumes from the
                     # recovered state
-                    save_checkpoint(self._make_checkpoint(epoch),
-                                    self.path_ckpt, "running_model")
+                    self._save(self._make_checkpoint(epoch), "running_model")
 
         if checkpoint is None:
             checkpoint = self._make_checkpoint(c.max_epochs - 1)
-        save_checkpoint(checkpoint, self.path_ckpt, "final_model")
+        self._save(checkpoint, "final_model")
+        if self.mesh:       # every rank returns with the run's files written
+            self.mesh.barrier()
         return self.model
+
+    def _read_checkpoint(self, path: str, missing_ok: bool = False
+                         ) -> Optional[Dict[str, Any]]:
+        """The checkpoint at ``path`` as rank 0 reads it, on every rank:
+        rank 0 alone writes checkpoints, to its own disk, which the ranks
+        of other hosts do not see.  ``missing_ok``: None if rank 0 has no
+        such file."""
+        ckpt = None
+        if self.writer and not (missing_ok and not os.path.exists(path)):
+            ckpt = load_checkpoint(path)
+        return self.mesh.broadcast(ckpt) if self.mesh else ckpt
+
+    def _save(self, checkpoint: Dict[str, Any], name: str) -> None:
+        if self.writer:
+            save_checkpoint(checkpoint, self.path_ckpt, name)
 
     def _make_checkpoint(self, epoch: int) -> Dict[str, Any]:
         optim = {key: optimizer_state_to_numpy(opt.state_dict())
@@ -395,7 +442,7 @@ class Trainer:
         """Resume from a checkpoint (training_class.py:68-81), one the port
         wrote or one of the JAX package; the JAX trainer keeps its
         schedulers at the checkpoint's top level."""
-        ckpt = load_checkpoint(path)
+        ckpt = self._read_checkpoint(path)
         self._load_state(ckpt)
         self.hist_train = ckpt["hist_train"]
         self.hist_val = ckpt["hist_val"]

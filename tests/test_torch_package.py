@@ -22,7 +22,10 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "matplotlib", "psignn_tpu")
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The port's modules, the smoke script and the rank workers of the
+    multi-rank tests (which spawned ranks import)."""
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "tests" / "_torch_dist.py"]
 
 
 def _imported_roots(path: Path):
@@ -43,14 +46,17 @@ def test_no_forbidden_imports(path):
 
 
 def test_package_import_leaves_jax_out():
-    """Importing every module of the package (and the smoke script) loads
-    no JAX, optax or matplotlib module."""
+    """Importing every module of the package (and the smoke script, and
+    the rank workers of the multi-rank tests) loads no JAX, optax or
+    matplotlib module."""
     script = (
         "import importlib, json, pkgutil, sys\n"
         "import psignn_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_dist\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in"
         f" {list(FORBIDDEN)!r})))\n")
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
@@ -61,8 +67,9 @@ def test_package_import_leaves_jax_out():
 
 def test_scan_covers_every_module():
     """The import checks above read every module of the training slice,
-    of the mixed slice and of the DSS and DS-GPS slice, and both kernel
-    sources exist beside the kernel module."""
+    of the mixed slice, of the DSS and DS-GPS slice and of the
+    multi-device slice (and the rank workers), and both kernel sources
+    exist beside the kernel module."""
     scanned = {str(p.relative_to(PORT)) for p in _port_sources()
                if PORT in p.parents}
     assert {"deq.py", "cli/main.py", "data/generate.py", "data/reader.py",
@@ -70,7 +77,11 @@ def test_scan_covers_every_module():
             "train/trainer.py", "kernels/fused_mp.py", "solvers.py",
             "graphs.py", "weights.py", "models/psignn.py", "data/fem.py",
             "data/meshgen.py", "eval/metrics.py", "eval/sweep.py",
-            "eval/run_eval.py", "models/dss.py", "models/dsgps.py"} <= scanned
+            "eval/run_eval.py", "models/dss.py", "models/dsgps.py",
+            "dist/__init__.py", "dist/multihost.py", "dist/dp.py",
+            "dist/partition.py", "dist/partitioned.py",
+            "dist/dryrun.py"} <= scanned
+    assert ROOT / "tests" / "_torch_dist.py" in _port_sources()
     for name in ("fused_mp_fwd", "fused_mp_bwd"):
         assert (build.SRC_DIR / f"{name}.cu").is_file()
 

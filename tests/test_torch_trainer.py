@@ -2,7 +2,8 @@
 their logs and checkpoints, a checkpoint the port trained answering a
 sweep request, the CLI's help, a tiny run, a mixed run and runs with the
 other solvers, the spike guard and the flags of paths not yet ported
-(``tests/test_trainer.py`` mirrored).  The per-graph solves, Broyden's
+(``tests/test_trainer.py`` mirrored).  Data-parallel runs
+(``--num_devices``) are in ``tests/test_torch_dist.py``.  The per-graph solves, Broyden's
 rank memory, bfloat16 data and resuming from a JAX checkpoint are in
 ``tests/test_torch_stacked.py``, ``test_torch_lowrank.py`` and
 ``test_torch_resume.py``.  DSS and DS-GPS runs are in
@@ -120,11 +121,14 @@ def test_trained_checkpoint_answers_a_sweep_request(tmp_path, data_dir):
     assert m["nstep"] > 0 and np.isfinite(m["res"]) and m["n_nodes"] > 0
 
 
-@pytest.mark.parametrize("over", [dict(data_parallel=True),
-                                  dict(family="dsgps", data_parallel=True)])
+@pytest.mark.parametrize("over", [
+    dict(data_parallel=True, stacked_batch=True),
+    dict(family="dsgps", data_parallel=True, stacked_batch=True)])
 def test_trainer_refuses_unported_paths(tmp_path, data_dir, over):
+    """Data parallelism is ported; per-graph solves stay refused with it,
+    as in JAX (and per-graph solves for a family without a solve)."""
     lt, lv = _loaders(data_dir)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="stacked_batch"):
         Trainer(TrainConfig(path_results=str(tmp_path), device="cpu",
                             **over), lt, lv)
 
@@ -266,8 +270,13 @@ def test_cli_trains_with_each_solver(tmp_path, data_dir, capsys, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--family", "dsgps", "--num_devices", "2"],
-    ["--num_devices", "2"], ["--num_devices", "0"],
+    # --num_devices is ported; Newton stays refused with it, as alone
+    pytest.param(["--family", "dsgps", "--num_devices", "2", "--solver",
+                  "newton"], id="family_dsgps_num_devices_2"),
+    pytest.param(["--num_devices", "2", "--solver", "newton_krylov"],
+                 id="num_devices_2"),
+    pytest.param(["--num_devices", "0", "--solver", "newton"],
+                 id="num_devices_0"),
     ["--solver", "newton"], ["--solver", "newton_krylov"]],
     ids=lambda f: "_".join(f).strip("-"))
 def test_cli_refuses_unported_flags(tmp_path, data_dir, capsys, flags):
