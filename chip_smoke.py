@@ -9,9 +9,9 @@ NCCL across several cards is the dry run's:
 Phases, each printing one JSON line:
 
 1. device     — a CUDA device is required; its name, count, power limit.
-2. build      — compile both CUDA kernels from
-                ``psignn_tpu_torch/kernels/csrc``, one ``nvcc`` each, in
-                parallel.
+2. build      — compile the three CUDA kernels (forward, backward, JVP)
+                from ``psignn_tpu_torch/kernels/csrc``, one ``nvcc`` each,
+                in parallel.
 3. kernel     — the forward fused message-passing kernel against its
                 plain PyTorch version on the card, both directions, on the
                 radius-5 headline mesh at edge_dim 3 and 1, on the train
@@ -51,39 +51,54 @@ Phases, each printing one JSON line:
 10. solvers   — the radius-1 sweep mesh solved with the trained Dirichlet
                 weights by ``forward_iteration``, ``anderson`` and
                 Broyden with its line search, each against the CPU.
-11. families  — a sweep request of each model family as a user runs it:
+11. newton    — Newton and Newton-Krylov: the JVP kernel against its
+                plain version at every Ψ-GNN-width case of phase 3 (timed
+                at the headline mesh and the 50-mesh batch, both
+                directions); Newton-Krylov requests of the trained
+                Dirichlet Ψ-GNN on the radius-1 and radius-5 sweep meshes
+                (launches: two forward per f_θ call, two JVP per call on
+                dual tensors), held to the card's Broyden answers and the
+                CPU's Newton-Krylov answers; dense Newton on a coarse blob,
+                card vs CPU; a 2-mesh Newton-Krylov train step (launches by
+                ``expected_launches``, JVP launches two per forward JVP),
+                card vs CPU; one ``cli.main --solver newton_krylov`` epoch
+                resumed from the trained checkpoint and a request from
+                its final checkpoint; a reference
+                ``state_dict`` through ``compat`` against the
+                ``weights.py`` route.
+12. families  — a sweep request of each model family as a user runs it:
                 the trained Ψ-GNN, DS-GPS and DSS Dirichlet checkpoints
                 through ``load_predictor`` and ``growing_geometry_sweep``
                 on one mesh at each of radii 1, 2 and 5 (DS-GPS and DSS
                 launch the kernel exactly 2k times a request); then the
                 radius-1 request of DS-GPS and DSS on the CPU.
-12. dsgps_mixed_eval — phase 8's mixed test batch answered by the trained
+13. dsgps_mixed_eval — phase 8's mixed test batch answered by the trained
                 ``results/dsgps_mixed`` checkpoint (3k launches), then on
                 the CPU.
-13. unrolled_train_step — ``train.unrolled_train_step`` of DSS (the
+14. unrolled_train_step — ``train.unrolled_train_step`` of DSS (the
                 50-mesh batch's A′ form), DS-GPS (the 50-mesh batch) and
                 mixed DS-GPS (the mixed 50-mesh batch) from their trained
                 weights: a warm-up that also creates Adam's state, three
                 timed steps from the same parameters with 2k (mixed 3k)
                 forward and backward launches each, one profiled step,
                 and a 2-mesh step on the GPU against the CPU.
-14. stacked_train_step — phase 7's step with one DEQ solve per mesh
+15. stacked_train_step — phase 7's step with one DEQ solve per mesh
                 (``--stacked_batch``): each mesh's forward steps, launches,
                 seconds, busy share; then its 2-mesh GPU-vs-CPU step.
-15. lowrank   — phase 6's loop with Broyden's rank memory capped at 640
+16. lowrank   — phase 6's loop with Broyden's rank memory capped at 640
                 (never wraps: bit-identical to full memory) and 128 (wraps
                 from step 129), each with f32 and bfloat16 pairs: wall;
                 device time and the rank products' share of the cap-128
                 runs; then an 8-pair ring on the radius-1 mesh on the GPU
                 against the CPU.
-16. zoo       — the 12 out-of-distribution shapes through ``run_eval
+17. zoo       — the 12 out-of-distribution shapes through ``run_eval
                 --zoo``'s path with the trained Dirichlet checkpoint; then
                 one shape on the CPU.
-17. iterative — ``psignn_iterative_inference`` on the radius-1 sweep mesh,
+18. iterative — ``psignn_iterative_inference`` on the radius-1 sweep mesh,
                 then against the CPU.
-18. several_init — ``test_several_init`` (four starting points) on the
+19. several_init — ``test_several_init`` (four starting points) on the
                 radius-1 sweep mesh's sample, on the card and the CPU.
-19. dist      — the multi-rank paths, each rank one spawned process on
+20. dist      — the multi-rank paths, each rank one spawned process on
                 the card (one H100: several ranks share it over gloo,
                 staging through the host; NCCL is checked on one rank):
                 ``dist_partitioned`` (the trained Dirichlet Ψ-GNN's Picard
@@ -98,7 +113,7 @@ Phases, each printing one JSON line:
                 parts 2 on two RCM-ordered radius-1 meshes, the card
                 against the CPU); a ``dist_world`` line says where each
                 world's seconds went.
-20. trainer   — training as a user runs it: a fresh Dirichlet dataset
+21. trainer   — training as a user runs it: a fresh Dirichlet dataset
                 (with DSS's encoding) and a fresh mixed one from
                 ``data.generate``, one epoch of ``cli.main`` for Ψ-GNN in
                 each variant, DSS, and DS-GPS in each variant, one more
@@ -113,8 +128,9 @@ Phases, each printing one JSON line:
 
 Then a ``seconds`` line (each phase's wall seconds; ``graphs`` builds the
 headline mesh and the three 50-mesh batches), one ``{"kernels": [...]}``
-line (each kernel's ``launches`` on its main path, and
-``launches_by_path`` for every path that launches it),
+line (each kernel's ``launches`` on its main path — the JVP kernel's:
+the Newton-Krylov requests — and ``launches_by_path`` for every path
+that launches it),
 the ``nvidia-smi`` name/power-limit line, and the last line
 ``{"ok": true, "device": {...}}``.  Any failure
 raises and exits non-zero.  Imports nothing of JAX or ``psignn_tpu``.
@@ -234,6 +250,37 @@ UNROLLED_CLIP = 0.01
 # whole gradient norm, about f32's own distance from f64 on this step.
 UNROLLED_LOSS_RTOL = 1e-3
 UNROLLED_GRAD_TOL = 1e-2
+# The newton phase.  Newton-Krylov requests of the trained Dirichlet Ψ-GNN
+# on the sweep's radius-1 and radius-5 meshes at the checkpoint's fw_tol.
+# They are held to the card's Broyden answers by the physics residual of
+# the decoded answer, within NEWTON_BROYDEN_RTOL: at radius 5 Broyden
+# stalls within its 500 steps, at a best residual that f32 summation order
+# moves between 3e-5 and 2e-4 (its u 4 % from Newton-Krylov's, its
+# physics residual 0.45–1.1 % from it, on the card and on the CPU), so u
+# itself is not comparable there.  Against the CPU's Newton-Krylov, the
+# same solver in other f32 orders, by the residual and by u within a
+# tolerance of max(1, max|u|), at a tolerance each mesh reaches in a few
+# seconds on the CPU: the checkpoint's fw_tol at radius 1 (4 steps, u
+# within NEWTON_U_TOL), REACHABLE_TOL at radius 5 (about 21 steps; the two
+# may stop a step or two apart, and on the CPU stopping at 1e-3 instead of
+# 1e-5 moves u by 3.5e-3 of max|u|, so u within NEWTON_REACH_U_TOL).
+NEWTON_RADII = (1.0, 5.0)
+NEWTON_BROYDEN_RTOL = 0.05
+NEWTON_U_TOL = 1e-3
+NEWTON_REACH_U_TOL = 1e-2
+# dense Newton (one JVP a column of the Jacobian) on a radius-1 blob mesh
+# this coarse: about 24 nodes, 240 JVPs a step
+NEWTON_DENSE_HSIZE = 0.45
+# the 2-mesh train step card vs CPU with Newton-Krylov in both solves:
+# fw_tol 1e-6 is reachable (the CPU's forward solve stalls near 3e-7),
+# the adjoint's steps reach 0 (GMRES takes no restart), each solve capped
+NEWTON_CMP_OVERRIDES = dict(solver="newton_krylov", fw_tol=1e-6, fw_thres=30,
+                            bw_tol=1e-7, bw_thres=30)
+# the CLI epoch: the trained Dirichlet Ψ-GNN resumed from its JAX
+# checkpoint for one more epoch with Newton-Krylov at the CLI's
+# tolerances, each solve capped (a fresh model's solves stall at the cap)
+NEWTON_TRAIN_FLAGS = ("--solver", "newton_krylov", "--fw_thres", "50",
+                      "--bw_thres", "50", "--resume", CKPT)
 
 
 def emit(phase: str, **kw) -> None:
@@ -334,6 +381,27 @@ def fused_mp_bwd_bound(n: int, e: int, d: int, dh: int, d_out: int,
         float(nbytes), float(flops)
 
 
+def fused_mp_jvp_bound(n: int, e: int, d: int, dh: int, d_out: int,
+                       edge_dim: int) -> tuple[float, str, float, float]:
+    """(bound_ms, bound_by, bytes, flops) of one JVP of the fused MP: h,
+    the direction v, the CSR and W1, b1, W2 read once, the tangent written
+    once; operations of its cheapest form — W1a·h, W1b·h, W1a·v and W1b·v
+    once per node, per edge the pre-activation (edge term, bias, adds) for
+    ReLU's mask and the masked tangent sum, W2 once per row."""
+    weights = dh * (2 * d + edge_dim) + dh + d_out * dh
+    nbytes = 4 * (2 * n * d + (n + 1) + e + e * edge_dim + weights
+                  + n * d_out)
+    flops = (n * 4 * (2 * d * dh)                  # W1a, W1b on h and v
+             + e * dh * (2 * edge_dim + 3)          # pre: W1c·ea, +b1, adds
+             + e * dh * 3                           # mask, add, sum
+             + n * 2 * dh * d_out)                  # W2·acc
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_F32_FLOPS
+    bound = max(t_bytes, t_ops)
+    return bound * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), \
+        float(nbytes), float(flops)
+
+
 def headline_graph(device):
     from psignn_tpu_torch.data.fem import solve_poisson
     from psignn_tpu_torch.data.meshgen import blob_mesh
@@ -357,11 +425,11 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both kernels, one ``nvcc`` each, started together."""
+    """The three kernels, one ``nvcc`` each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from psignn_tpu_torch.kernels import build
-    names = ("fused_mp_fwd", "fused_mp_bwd")
+    names = ("fused_mp_fwd", "fused_mp_bwd", "fused_mp_jvp")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         results = list(pool.map(build.build, names))
@@ -452,18 +520,25 @@ def kernel_entry(name: str, replaces: str, cases: list, main: tuple) -> dict:
                 library_ms=None)
 
 
-def phase_kernel(cases, device) -> dict:
-    """Forward kernel vs plain on the card; the ``kernels`` line reports
-    the headline mesh's ``to`` case."""
-    from psignn_tpu_torch.kernels.fused_mp import (fused_message_passing,
-                                                   mp_from_csr)
+def check_kernel(phase: str, name: str, replaces: str, kernel, plain,
+                 bound, cases, device, seed: int, with_g: bool,
+                 skip=lambda edge_dim, timed: False) -> dict:
+    """``kernel`` against its ``plain`` version on the card, case by case
+    (seeded inputs; the case's g is passed too when ``with_g``): max error
+    within KERNEL_REL_TOL, a relaunch bit-identical, and at the timed
+    cases the per-call times beside ``bound``.  Returns the ``kernels``
+    line's entry, its times from the headline mesh's ``to`` case."""
     done = []
     for i, (mesh, edge_dim, direction, csr, width, timed) in enumerate(cases):
-        args = (*case_inputs(i, csr, width, edge_dim, device)[:5], csr)
+        if skip(edge_dim, timed):
+            continue
+        w1, b1, w2, b2, h, g = case_inputs(seed + i, csr, width, edge_dim,
+                                           device)
+        args = (w1, b1, w2, b2, h, csr) + ((g,) if with_g else ())
         with torch.no_grad():
-            out1 = fused_message_passing(*args)
-            out2 = fused_message_passing(*args)
-            ref = mp_from_csr(*args)
+            out1 = kernel(*args)
+            out2 = kernel(*args)
+            ref = plain(*args)
             torch.cuda.synchronize()
             err = float((out1 - ref).abs().max()) if ref.numel() else 0.0
             scale = float(ref.abs().max()) if ref.numel() else 0.0
@@ -473,24 +548,33 @@ def phase_kernel(cases, device) -> dict:
                         max_abs_err=err, max_rel_err=err / max(scale, 1e-30),
                         bit_identical=bool(torch.equal(out1, out2)))
             if timed:
-                dev_ms, dev_kernels = kernel_device_ms(
-                    lambda: fused_message_passing(*args))
-                bound_ms, bound_by, nbytes, flops = fused_mp_bound(
+                dev_ms, dev_kernels = kernel_device_ms(lambda: kernel(*args))
+                bound_ms, bound_by, nbytes, flops = bound(
                     csr.n_rows, csr.n_edges, width, width, width, edge_dim)
                 case.update(
-                    ms=cuda_ms(lambda: fused_message_passing(*args)),
+                    ms=cuda_ms(lambda: kernel(*args)),
                     device_ms=dev_ms, device_kernels=dev_kernels,
-                    plain_ms=cuda_ms(lambda: mp_from_csr(*args)),
+                    plain_ms=cuda_ms(lambda: plain(*args)),
                     bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                    flops=flops)
-        emit("kernel", **case)
+                    flops=flops, library_ms=None)
+        emit(phase, **case)
         if not case["bit_identical"]:
-            raise RuntimeError(f"fused_mp relaunch differs: {case}")
+            raise RuntimeError(f"{name} relaunch differs: {case}")
         if not err <= KERNEL_REL_TOL * max(1.0, scale):
-            raise RuntimeError(f"fused_mp disagrees with plain: {case}")
+            raise RuntimeError(f"{name} disagrees with plain: {case}")
         done.append(case)
-    return kernel_entry("fused_mp_fwd", "psignn_tpu/kernels/fused_mp.py:282",
-                        done, ("headline", 3, "to", WIDTH))
+    return kernel_entry(name, replaces, done, ("headline", 3, "to", WIDTH))
+
+
+def phase_kernel(cases, device) -> dict:
+    """Forward kernel vs plain on the card; the ``kernels`` line reports
+    the headline mesh's ``to`` case."""
+    from psignn_tpu_torch.kernels.fused_mp import (fused_message_passing,
+                                                   mp_from_csr)
+    return check_kernel("kernel", "fused_mp_fwd",
+                        "psignn_tpu/kernels/fused_mp.py:282",
+                        fused_message_passing, mp_from_csr, fused_mp_bound,
+                        cases, device, 0, False)
 
 
 def _sweep(device, radii, warmup, overrides=None, count_launches=False):
@@ -739,13 +823,16 @@ def mp_per_call(cfg) -> int:
 
 def expected_launches(res, cfg) -> tuple[int, int]:
     """(forward, backward) kernel launches one train step implies:
-    ``mp_per_call`` per f_θ call — the forward solve's calls, the tracked
+    ``mp_per_call`` per f_θ call — the forward solve's calls and its JVPs
+    (Newton's: forward-mode AD evaluates f_θ on dual tensors), the tracked
     application and the Jacobian loss's; and as many per VJP of f_θ — each
-    adjoint iteration's, the route of the adjoint solution into the
+    adjoint iteration's and adjoint JVP's (Newton's: the VJP is the affine
+    adjoint map's tangent), the route of the adjoint solution into the
     parameters, the Hutchinson VJP and its own second-order backward
     through f_θ's forward."""
     k = mp_per_call(cfg)
-    return k * (res.fw.calls + 2), k * (res.bw.calls + 3)
+    return (k * (res.fw.calls + res.fw.jvps + 2),
+            k * (res.bw.calls + res.bw.jvps + 3))
 
 
 def phase_train_step(graph, graph_s: float, device, smi: str,
@@ -793,12 +880,15 @@ def phase_train_step(graph, graph_s: float, device, smi: str,
 
 
 def phase_train_step_cpu_agreement(device, ckpt: str, variant: str,
-                                   phase: str, stacked: bool = False) -> None:
-    """The same step on 2 meshes on the GPU and on the CPU."""
+                                   phase: str, stacked: bool = False,
+                                   overrides=None) -> None:
+    """The same step on 2 meshes on the GPU and on the CPU, with the
+    solves of ``overrides`` (default ``CMP_OVERRIDES``)."""
+    overrides = overrides or CMP_OVERRIDES
     out = []
     for dev in (device, torch.device("cpu")):
         graph = train_graph(CMP_MESHES, 1, dev, variant)
-        model, cfg, init = trained_model(dev, CMP_OVERRIDES, ckpt)
+        model, cfg, init = trained_model(dev, overrides, ckpt)
         res, _ = step_from(model, cfg, init, graph, stacked=stacked)
         grads = {k: p.grad.detach().cpu() for k, p in
                  model.named_parameters()}
@@ -812,7 +902,7 @@ def phase_train_step_cpu_agreement(device, ckpt: str, variant: str,
                          / max(float(torch.linalg.vector_norm(cgrad[k])),
                                1e-30))
                 for k in cgrad}
-    rec = dict(overrides=CMP_OVERRIDES, n_meshes=CMP_MESHES,
+    rec = dict(overrides=overrides, n_meshes=CMP_MESHES,
                gpu=dict(loss=gpu.loss, grad_norm=gpu.grad_norm,
                         fw=stats(gpu.fw), bw=stats(gpu.bw)),
                cpu=dict(loss=cpu.loss, grad_norm=cpu.grad_norm,
@@ -835,25 +925,31 @@ def sync(device) -> None:
 def counted_predictor(ckpt: str, device, overrides=None):
     """(cfg, answer): ``answer(graph)`` runs ``load_predictor``'s predictor
     on ``graph`` and returns (PsignnInference, record) with its host
-    seconds, f_θ calls and the kernel launches of the call."""
+    seconds, f_θ calls (``jvp_f_calls`` of them on dual tensors: the JVPs
+    of Newton's solvers) and the kernel launches of the call."""
+    import torch.autograd.forward_ad as fwAD
+
     from psignn_tpu_torch.eval.run_eval import load_predictor
     from psignn_tpu_torch.kernels import fused_mp as mp
     predict, _, cfg, model = load_predictor(ckpt, device, overrides)
     calls = []
-    model.function.register_forward_hook(lambda *a: calls.append(1))
+    model.function.register_forward_hook(lambda _, args, __: calls.append(
+        fwAD.unpack_dual(args[0]).tangent is not None))
 
     def answer(graph):
         calls.clear()
         sync(device)
-        mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+        mp.LAUNCHES = mp.BWD_LAUNCHES = mp.JVP_LAUNCHES = 0
         t0 = time.perf_counter()
         out = predict(graph)
         sync(device)
         seconds = time.perf_counter() - t0
         return out, dict(nstep=out.nstep, lowest=out.lowest,
                          prot_break=out.prot_break, seconds=seconds,
-                         f_calls=len(calls), fwd_launches=mp.LAUNCHES,
-                         bwd_launches=mp.BWD_LAUNCHES)
+                         f_calls=len(calls), jvp_f_calls=sum(calls),
+                         fwd_launches=mp.LAUNCHES,
+                         bwd_launches=mp.BWD_LAUNCHES,
+                         jvp_launches=mp.JVP_LAUNCHES)
 
     return cfg, answer
 
@@ -1095,17 +1191,24 @@ def finite(*values) -> bool:
     return all(np.isfinite(v) for v in values)
 
 
-def radius1_graphs(family: str, devices):
-    """The sweep's first mesh (radius 1, seed 0) in the family's sample
-    form, one graph on each device."""
+def sweep_graphs(radii, devices, family: str = "psignn") -> dict:
+    """{radius: [graph on each device]}: the sweep's meshes (seed 0, one a
+    radius of ``SWEEP_RADII``, as the slice phase's) at ``radii``, in the
+    family's sample form."""
     from psignn_tpu_torch.data.meshgen import blob_mesh
     from psignn_tpu_torch.eval.sweep import build_data
     from psignn_tpu_torch.graphs import batch_graphs
     form = "dss" if family == "dss" else "psignn"
     rng = np.random.default_rng(0)
-    mesh = blob_mesh(radius=1.0, hsize=0.08, rng=rng)
-    sample = build_data(mesh, 1.0, rng, (form,))[form]
-    return [batch_graphs([sample], device=d) for d in devices]
+    out = {}
+    for r in SWEEP_RADII:
+        if r > max(radii):
+            break
+        mesh = blob_mesh(radius=r, hsize=0.08, rng=rng)
+        sample = build_data(mesh, r, rng, (form,))[form]
+        if r in radii:
+            out[r] = [batch_graphs([sample], device=d) for d in devices]
+    return out
 
 
 def phase_families(device) -> None:
@@ -1152,7 +1255,7 @@ def phase_families(device) -> None:
             raise RuntimeError(f"{family} sweep launched {launches}")
         if family == "psignn":
             continue     # compared with the CPU by the slice phase
-        gpu_g, cpu_g = radius1_graphs(family, (device, cpu))
+        gpu_g, cpu_g = sweep_graphs((1.0,), (device, cpu), family)[1.0]
         u_gpu = predict(gpu_g)
         u_cpu = load_predictor(ckpt, cpu)[0](cpu_g)
         res_gpu = float(errors_batch(u_gpu, gpu_g)["res"][0])
@@ -1474,7 +1577,8 @@ def lowrank_cpu_agreement(device) -> None:
     from psignn_tpu_torch.deq import fixed_point_forward
     from psignn_tpu_torch.weights import load_psignn_checkpoint
     cpu = torch.device("cpu")
-    graphs = dict(zip((device, cpu), radius1_graphs("psignn", (device, cpu))))
+    graphs = dict(zip((device, cpu),
+                      sweep_graphs((1.0,), (device, cpu))[1.0]))
 
     def trace(dev, bf16):
         model, cfg = load_psignn_checkpoint(CKPT, dev, dict(
@@ -1583,7 +1687,8 @@ def phase_iterative(device) -> int:
     from psignn_tpu_torch.models import psignn_iterative_inference
     from psignn_tpu_torch.weights import load_psignn_checkpoint
     cpu = torch.device("cpu")
-    graphs = dict(zip((device, cpu), radius1_graphs("psignn", (device, cpu))))
+    graphs = dict(zip((device, cpu),
+                      sweep_graphs((1.0,), (device, cpu))[1.0]))
 
     def trace(dev, overrides=None):
         model, cfg = load_psignn_checkpoint(CKPT, dev, overrides)
@@ -2151,6 +2256,215 @@ def phase_dist(sample, built, device, smi: str, seconds: dict) -> dict:
 
 
 
+def phase_kernel_jvp(cases, device) -> dict:
+    """JVP kernel vs plain on the card, at every case of the Ψ-GNN's
+    widths (edge_dim 3; the DSS cases at edge_dim 1 do not solve a fixed
+    point) and the checked-only ones, the direction v the case's g; the
+    ``kernels`` line reports the headline mesh's ``to`` case."""
+    from psignn_tpu_torch.kernels.fused_mp import (fused_mp_jvp,
+                                                   mp_jvp_from_csr)
+    return check_kernel(
+        "kernel_jvp", "fused_mp_jvp", "none: no TPU kernel (JAX linearizes "
+        "the XLA message passing, psignn_tpu/ops.py:48-67)", fused_mp_jvp,
+        mp_jvp_from_csr, fused_mp_jvp_bound, cases, device, 200, True,
+        skip=lambda edge_dim, timed: timed and edge_dim != 3)
+
+
+def _newton_answer(solver: str, graph, device, check: bool = True,
+                   fw_tol=None):
+    """(u, record) of ``solver``'s request of the trained Dirichlet Ψ-GNN
+    on ``graph`` (at ``fw_tol``, default the checkpoint's), with its
+    physics residual.  With ``check`` it raises
+    unless the launches keep the rule: two forward launches per f_θ call,
+    two JVP launches per call on dual tensors (the JVPs: one per entry of
+    the state a step for dense Newton, some for Newton-Krylov, none for
+    the others), no backward launch."""
+    from psignn_tpu_torch.eval.metrics import errors_batch
+    overrides = dict(solver=solver)
+    if fw_tol is not None:
+        overrides["fw_tol"] = fw_tol
+    _, answer = counted_predictor(CKPT, device, overrides)
+    out, rec = answer(graph)
+    rec["res"] = float(errors_batch(out.u, graph)["res"][0])
+    if check:
+        jvps, primal = rec["jvp_f_calls"], rec["f_calls"] - rec["jvp_f_calls"]
+        ok = (rec["fwd_launches"] == 2 * rec["f_calls"] and primal > 0
+              and rec["jvp_launches"] == 2 * jvps
+              and rec["bwd_launches"] == 0)
+        if solver == "newton":
+            ok &= jvps == graph.total_nodes * WIDTH * primal
+        else:
+            ok &= (jvps > 0) == (solver == "newton_krylov")
+        if not ok or rec["prot_break"] or not finite(rec["res"]):
+            raise RuntimeError(f"{solver} request failed: {rec}")
+    return out.u, rec
+
+
+def reference_state_dict(sd: dict) -> dict:
+    """A port Ψ-GNN state dict (Dirichlet, one layer) under the reference
+    model's key names: what ``compat.convert_psignn`` reads."""
+    import re
+    rules = ((r"^function\.layers\.(\d+)\.(phi_to|phi_from)\.layers\.(\d)",
+              lambda m: (f"deqdss.f.{m[2]}_list.{m[1]}.mlp.mlp."
+                         f"{2 * int(m[3])}")),
+             (r"^function\.layers\.(\d+)\.update\.layers\.(\d)",
+              lambda m: f"deqdss.f.update_list.{m[1]}.mlp.{2 * int(m[2])}"),
+             (r"^function\.alpha", lambda m: "deqdss.f.alpha.0"),
+             (r"^function\.laynorm", lambda m: "deqdss.f.laynorm"),
+             (r"^(encoder|decoder)\.layers\.(\d)",
+              lambda m: f"autoencoder.{m[1]}.mlp.mlp.{2 * int(m[2])}"))
+    out = {}
+    for key, value in sd.items():
+        for pattern, repl in rules:
+            new, n = re.subn(pattern, repl, key)
+            if n:
+                out[new] = value.detach().cpu().clone()
+                break
+        else:
+            raise KeyError(key)
+    return out
+
+
+def phase_newton(cases, device, smi: str) -> tuple:
+    """Newton and Newton-Krylov on the card: the JVP kernel against its
+    plain version; Newton-Krylov requests (``NEWTON_RADII``) against the
+    card's Broyden and the CPU's Newton-Krylov; dense Newton on a coarse
+    blob, card vs CPU; a 2-mesh Newton-Krylov train step with its launch
+    rule, card vs CPU; one CLI epoch with ``--solver newton_krylov`` (the
+    trained checkpoint resumed) and a request from its checkpoint; the
+    compat round trip.  Returns the
+    ``kernels`` line's JVP entry and {path: (forward, backward, JVP)
+    launches}."""
+    from psignn_tpu_torch import compat
+    from psignn_tpu_torch.cli.main import main as train_main
+    from psignn_tpu_torch.data.fem import solve_poisson
+    from psignn_tpu_torch.data.generate import generate_data
+    from psignn_tpu_torch.data.meshgen import blob_mesh
+    from psignn_tpu_torch.data.reader import psignn_sample_from_fem
+    from psignn_tpu_torch.eval import run_eval
+    from psignn_tpu_torch.eval.sweep import growing_geometry_sweep
+    from psignn_tpu_torch.graphs import batch_graphs
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    from psignn_tpu_torch.models import psignn_inference
+    from psignn_tpu_torch.weights import load_jax_checkpoint
+    cpu = torch.device("cpu")
+    entry = phase_kernel_jvp(cases, device)
+    launches = {}
+
+    graphs = sweep_graphs(NEWTON_RADII, (device, cpu))
+    _newton_answer("newton_krylov", graphs[1.0][0], device)      # warm-up
+    for r in NEWTON_RADII:
+        gpu_g, cpu_g = graphs[r]
+        u, gpu = _newton_answer("newton_krylov", gpu_g, device)
+        _, broyden = _newton_answer("broyden", gpu_g, device)
+        # against the CPU at a tolerance it reaches in a few seconds
+        tol, u_tol = ((None, NEWTON_U_TOL) if r == NEWTON_RADII[0]
+                      else (REACHABLE_TOL, NEWTON_REACH_U_TOL))
+        u_r, gpu_r = (u, gpu) if tol is None else _newton_answer(
+            "newton_krylov", gpu_g, device, fw_tol=tol)
+        u_cpu, cpu_r = _newton_answer("newton_krylov", cpu_g, cpu, False,
+                                      fw_tol=tol)
+        scale = max(1.0, float(u_cpu.abs().max()))
+        rec = dict(radius=r, n_nodes=cpu_g.total_nodes,
+                   n_edges=int(cpu_g.senders.shape[0]), gpu=gpu,
+                   broyden=broyden, cpu_cmp_fw_tol=tol or "checkpoint's",
+                   gpu_cmp=gpu_r, cpu_cmp=cpu_r,
+                   res_rel_diff_broyden=abs(gpu["res"] - broyden["res"])
+                   / broyden["res"],
+                   res_rel_diff_cpu=abs(gpu_r["res"] - cpu_r["res"])
+                   / cpu_r["res"],
+                   u_max_abs_diff_cpu=float((u_r.cpu() - u_cpu).abs().max()),
+                   u_scale=scale, u_tol=u_tol, res_rtol=RES_REL_TOL,
+                   res_rtol_broyden=NEWTON_BROYDEN_RTOL)
+        emit("newton_request", card=smi, **rec)
+        if (rec["res_rel_diff_broyden"] > NEWTON_BROYDEN_RTOL
+                or rec["res_rel_diff_cpu"] > RES_REL_TOL
+                or rec["u_max_abs_diff_cpu"] > u_tol * scale):
+            raise RuntimeError(f"newton_krylov request disagrees: {rec}")
+        launches[f"newton_krylov_r{r:g}"] = (
+            gpu["fwd_launches"], gpu["bwd_launches"], gpu["jvp_launches"])
+
+    rng = np.random.default_rng(0)
+    sample = psignn_sample_from_fem(solve_poisson(blob_mesh(
+        radius=1.0, hsize=NEWTON_DENSE_HSIZE, rng=rng), 1.0, rng))
+    u, gpu = _newton_answer("newton", batch_graphs([sample], device=device),
+                            device)
+    u_cpu, cpu_rec = _newton_answer(
+        "newton", batch_graphs([sample], device=cpu), cpu, False)
+    scale = max(1.0, float(u_cpu.abs().max()))
+    rec = dict(n_nodes=len(sample["x"]), gpu=gpu, cpu=cpu_rec,
+               u_max_abs_diff_cpu=float((u.cpu() - u_cpu).abs().max()),
+               u_scale=scale, u_tol=NEWTON_U_TOL)
+    emit("newton_dense", card=smi, **rec)
+    if rec["u_max_abs_diff_cpu"] > NEWTON_U_TOL * scale:
+        raise RuntimeError(f"dense newton disagrees: {rec}")
+    launches["newton_dense"] = (gpu["fwd_launches"], gpu["bwd_launches"],
+                                gpu["jvp_launches"])
+
+    graph = train_graph(CMP_MESHES, 1, device)
+    model, cfg, init = trained_model(device, NEWTON_CMP_OVERRIDES)
+    step_from(model, cfg, init, graph)      # warm-up
+    mp.LAUNCHES = mp.BWD_LAUNCHES = mp.JVP_LAUNCHES = 0
+    res, wall = step_from(model, cfg, init, graph)
+    got = (mp.LAUNCHES, mp.BWD_LAUNCHES, mp.JVP_LAUNCHES)
+    want = (*expected_launches(res, cfg), mp_per_call(cfg) * res.fw.jvps)
+    rec = dict(n_meshes=CMP_MESHES, n_nodes=graph.total_nodes, seconds=wall,
+               loss=res.loss, grad_norm=res.grad_norm, fw=stats(res.fw),
+               bw=stats(res.bw), launches=got, expected_launches=want)
+    emit("newton_train_step", card=smi, **rec)
+    if got != want or res.fw.jvps == 0 or res.bw.jvps == 0 or not finite(
+            res.loss, res.grad_norm):
+        raise RuntimeError(f"newton_train_step failed: {rec}")
+    launches["newton_train_step"] = got
+    phase_train_step_cpu_agreement(device, CKPT, "dirichlet",
+                                   "newton_train_step",
+                                   overrides=NEWTON_CMP_OVERRIDES)
+
+    root = os.path.join(".chipwork", "smoke_newton")
+    shutil.rmtree(root, ignore_errors=True)
+    data, results = os.path.join(root, "data"), os.path.join(root, "results")
+    generate_data(data, n_mesh=2, n_samples=5, radius=1.0, hsize=0.08,
+                  verbose=False)
+    epochs = 1 + len(load_jax_checkpoint(CKPT)["hist_val"]["loss"])
+    mp.LAUNCHES = mp.BWD_LAUNCHES = mp.JVP_LAUNCHES = 0
+    t0 = time.perf_counter()
+    train_main(["--path_dataset", data, "--path_results", results,
+                "--batch_size", "3", "--max_epochs", str(epochs),
+                "--device", str(device), *NEWTON_TRAIN_FLAGS])
+    got = (mp.LAUNCHES, mp.BWD_LAUNCHES, mp.JVP_LAUNCHES)
+    train_s = time.perf_counter() - t0
+    final = os.path.join(results, "ckpt", "final_model.ckpt")
+    predict, fam, cfg, _ = run_eval.load_predictor(final, device)
+    req = growing_geometry_sweep(
+        {fam: predict}, radii=(1.0,), n_meshes=1, hsize=0.08, seed=0,
+        device=device, warmup=False, families=("psignn",))[fam][1.0]
+    rec = dict(flags=NEWTON_TRAIN_FLAGS, train_s=train_s, launches=got,
+               checkpoint_solver=cfg.solver,
+               request={k: req[k] for k in ("n_nodes", "nstep", "res",
+                                            "mse")})
+    emit("newton_trainer", card=smi, **rec)
+    if (0 in got or cfg.solver != "newton_krylov"
+            or not finite(req["res"], req["mse"])):
+        raise RuntimeError(f"newton_trainer failed: {rec}")
+    launches["newton_trainer"] = got
+
+    gpu_g = graphs[1.0][0]
+    model, cfg, _ = trained_model(device)
+    out = compat.convert_psignn(reference_state_dict(model.state_dict()))
+    converted = type(model)(cfg, device=device)
+    converted.load_state_dict(out)
+    want = psignn_inference(model.eval(), gpu_g, cfg)
+    got = psignn_inference(converted.eval(), gpu_g, cfg)
+    diff = float((got.u - want.u).abs().max())
+    rec = dict(n_nodes=gpu_g.total_nodes, nstep=(got.nstep, want.nstep),
+               u_max_abs_diff=diff, bit_identical=bool(torch.equal(got.u,
+                                                                   want.u)))
+    emit("newton_compat", **rec)
+    if diff > 1e-6 * max(1.0, float(want.u.abs().max())):
+        raise RuntimeError(f"compat round trip differs: {rec}")
+    return entry, launches
+
+
 def device_breakdown(run, top: int = 8, ranges=()) -> dict:
     """One more run of ``run`` under ``torch.profiler``: the device's kernel
     time in all and by kernel name, and the busy share of the unprofiled
@@ -2217,6 +2531,7 @@ def main() -> None:
     timed("mixed_train_step", phase_train_step, mgraph, mgraph_s, device,
           smi, MIXED_CKPT, "mixed_train_step")
     timed("solvers", phase_solvers, device)
+    jvp, newton = timed("newton", phase_newton, cases, device, smi)
     timed("families", phase_families, device)
     timed("dsgps_mixed_eval", phase_dsgps_mixed_eval, mixed_test, device)
     timed("unrolled_train_step", phase_unrolled_train_step, built, device,
@@ -2240,8 +2555,15 @@ def main() -> None:
     bwd["launches_by_path"] = dict(
         train_step=bwd["launches"], stacked_train_step=stacked[1],
         **{path: n[1] for path, n in dist.items() if n[1]},
-        **{"trainer_" + run: n[1] for run, n in trainer.items()})
-    print(json.dumps({"kernels": [fwd, bwd]}), flush=True)
+        **{"trainer_" + run: n[1] for run, n in trainer.items()},
+        **{path: n[1] for path, n in newton.items() if n[1]})
+    fwd["launches_by_path"].update(
+        {path: n[0] for path, n in newton.items()})
+    # the JVP kernel's main path: the Newton-Krylov requests
+    jvp["launches"] = sum(n[2] for path, n in newton.items()
+                          if path.startswith("newton_krylov_"))
+    jvp["launches_by_path"] = {path: n[2] for path, n in newton.items()}
+    print(json.dumps({"kernels": [fwd, bwd, jvp]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

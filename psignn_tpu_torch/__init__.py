@@ -6,17 +6,19 @@ the update function → decoder → residual metrics) and training
 the paper's two baselines, DS-GPS and DSS (k-step unrolls, trained by
 backpropagation through the unroll), with Dirichlet or mixed
 Dirichlet+Neumann conditions (DSS: Dirichlet), on an NVIDIA GPU, with the
-fused message passing and its backward as hand-written CUDA kernels
-(``kernels/csrc/fused_mp_{fwd,bwd}.cu``).  Module names mirror the JAX
+fused message passing, its backward and its tangent (forward-mode AD, for
+Newton-Krylov) as hand-written CUDA kernels
+(``kernels/csrc/fused_mp_{fwd,bwd,jvp}.cu``).  Module names mirror the JAX
 package so each counterpart is easy to find:
 
   graphs   — unpadded concatenated mesh graphs + CSR edge packings
   nn       — Xavier-initialised MLP blocks
   ops      — message passing, SpMV and BC-encoded residuals, masked means
   solvers  — Picard, Anderson, Broyden (+ Armijo line search, capped or
-             bfloat16 rank memory), each also as per-graph lanes of one
-             batch, or split over ranks (the ``reduce`` / ``sync``
-             hooks); Newton and Newton-Krylov not yet ported
+             bfloat16 rank memory), Newton (dense Jacobian) and
+             Newton-Krylov (JAX's batched GMRES on JVPs), each also as
+             per-graph lanes of one batch; all but the Newton solvers
+             also split over ranks (the ``reduce`` / ``sync`` hooks)
   deq      — forward solve, implicit backward, Jacobian regularisers
   models   — Ψ-GNN, DS-GPS (Dirichlet and mixed) and DSS (Dirichlet):
              inference, the iterate traces and the training forwards
@@ -24,7 +26,8 @@ package so each counterpart is easy to find:
   weights  — JAX parameter trees and checkpoints ↔ port modules
   data     — blob and mixed meshes, P1 FEM assembly, samples, dataset
              factory and loader
-  kernels  — the CUDA fused message-passing kernels and plain versions
+  kernels  — the CUDA fused message-passing kernels (forward, backward,
+             JVP) and their plain versions
   train    — optimizers, the train steps, checkpoints, the trainer
   dist     — several devices over ``torch.distributed``, one process a
              rank: data parallelism, edge-sharded message passing, the
@@ -33,6 +36,9 @@ package so each counterpart is easy to find:
   eval     — per-graph metrics, the test-split table, the
              growing-geometry sweep, the out-of-distribution geometry zoo
              and the several-initialisations study
+  compat   — reference ``.pt`` checkpoints → port models
+  profiling — ``torch.profiler`` traces, best-of timing, edges/s
+  entry    — one training forward on one card, and the multi-rank dry run
 
 The package imports torch, numpy and scipy only — never JAX or the JAX
 package.  Entry points run on ``cuda`` unless the caller passes

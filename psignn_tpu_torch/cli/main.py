@@ -17,10 +17,11 @@ and DSS.  ``--stacked_batch`` solves each mesh of a Ψ-GNN batch on its own
 ``--lowrank_bf16`` set Broyden's rank memory; ``--precision bfloat16``
 loads the dataset rounded to bfloat16 (the arithmetic stays float32, as
 JAX's float32 parameters make it); ``--resume`` takes a checkpoint of the
-port or of the JAX trainer.  Only the flags of paths not yet ported
-(``--num_devices`` other than 1, ``--solver newton|newton_krylov``) are
-refused; the TPU-only ``--rcm``, ``--pallas`` and ``--cache_batches`` are
-not flags here.  ``--device`` picks the torch device (default: cuda).  The
+port or of the JAX trainer.  ``--num_devices`` trains data-parallel
+(every family), ``--solver newton|newton_krylov`` solves the DEQ's forward
+and adjoint systems by Newton's method (DS-GPS and DSS ignore ``--solver``,
+as in JAX); the TPU-only ``--rcm``, ``--pallas`` and ``--cache_batches``
+are not flags here.  ``--device`` picks the torch device (default: cuda).  The
 mixed variant's split is shuffled by ``--seed``.
 
 A run without ``--resume`` starts afresh: it deletes the ``ckpt/`` and
@@ -123,8 +124,6 @@ def get_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(p: argparse.ArgumentParser, args) -> None:
     """``p.error`` on any flag value whose path the port does not have."""
-    if args.solver in ("newton", "newton_krylov"):
-        p.error(f"not yet ported: --solver {args.solver}")
     if args.family == "dss" and args.variant != "dirichlet":
         p.error("--family dss has a Dirichlet variant only")
 

@@ -31,7 +31,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .solvers import Lanes, SolverResult, get_solver
+from .solvers import JVP_SOLVERS, Lanes, SolverResult, get_solver
 
 
 class DEQConfig(NamedTuple):
@@ -67,10 +67,11 @@ class SolveStats(NamedTuple):
     lowest: float   # best stop-mode residual
     nstep: int      # step of the best iterate
     calls: int      # evaluations of the solved function
+    jvps: int = 0   # its JVPs (Newton, Newton-Krylov)
 
 
 def solve_stats(out: SolverResult) -> SolveStats:
-    return SolveStats(out.lowest, out.nstep, out.calls)
+    return SolveStats(out.lowest, out.nstep, out.calls, out.jvps)
 
 
 class AdjointSolve:
@@ -106,7 +107,11 @@ def deq_attach(f: Callable, cfg: DEQConfig, h_star: torch.Tensor,
     ``cfg.bw_tol`` / ``cfg.bw_thres``; y then flows through the one
     application into the parameters and ``h_init``.  With ``lanes`` the
     adjoint system is solved per lane, as the forward was; with
-    ``reduce`` / ``sync`` it is split over a group (``deq_attach_dist``)."""
+    ``reduce`` / ``sync`` it is split over a group (``deq_attach_dist``).
+    The map y ↦ Jᵀy + g is affine, so a Newton solver gets its exact
+    tangent v ↦ Jᵀv, one VJP, as ``jvp`` (what JAX's ``jax.linearize`` of
+    the map computes; forward-mode AD cannot go through
+    ``torch.autograd.grad``)."""
     h = h_star.detach().requires_grad_()
     new_h = f(h, h_init, graph)
     adjoint = AdjointSolve()
@@ -117,12 +122,15 @@ def deq_attach(f: Callable, cfg: DEQConfig, h_star: torch.Tensor,
     def hook(g):
         handle.remove()                  # the VJPs below must not re-enter
 
-        def step(y):
-            return torch.autograd.grad(new_h, h, y, retain_graph=True)[0] + g
+        def vjp(v):
+            return torch.autograd.grad(new_h, h, v, retain_graph=True)[0]
 
-        out = solver(step, torch.zeros_like(g), threshold=cfg.bw_thres,
-                     eps=cfg.bw_tol, reduce=reduce, sync=sync,
-                     **_solver_kwargs(cfg, lanes))
+        kw = _solver_kwargs(cfg, lanes)
+        if cfg.solver in JVP_SOLVERS:
+            kw["jvp"] = lambda y, v: vjp(v)
+        out = solver(lambda y: vjp(y) + g, torch.zeros_like(g),
+                     threshold=cfg.bw_thres, eps=cfg.bw_tol, reduce=reduce,
+                     sync=sync, **kw)
         adjoint.stats = solve_stats(out)
         return out.result
 

@@ -8,7 +8,8 @@ over its edges (self-loops and masked edges excluded).  On the TPU the
 edges were packed into 128-node blocks with RCM windows for one-hot MXU
 matmuls; here they are packed as a CSR by aggregation node
 (``pack_csr``), which the CUDA kernels walk row by row
-(``csrc/fused_mp_fwd.cu``, ``csrc/fused_mp_bwd.cu``).
+(``csrc/fused_mp_fwd.cu``, ``csrc/fused_mp_bwd.cu``, and
+``csrc/fused_mp_jvp.cu``, the tangent, which has no TPU counterpart).
 
 ``fused_message_passing`` picks by device: a CPU tensor goes through the
 plain version ``mp_from_csr`` (differentiated by autograd); a CUDA tensor
@@ -18,6 +19,15 @@ fallback.  As in the JAX package (``fused_mp.py:248-265``), the backward
 is itself differentiable: its first-order values come from the kernel and
 its own derivatives from differentiating the plain VJP ``mp_vjp_from_csr``,
 which the Hutchinson Jacobian loss needs.
+
+Forward-mode AD (Newton-Krylov's Jacobian-vector products) goes through
+the same Functions: ``_FusedMP.jvp`` launches the JVP kernel for a tangent
+of ``h`` (``fused_mp_jvp``; plain version ``mp_jvp_from_csr``), and
+``_FusedMPVjp.jvp``, the VJP being linear in its cotangent ``g``, launches
+the backward kernel for a tangent of ``g``.  A tangent of the weights
+raises: no path needs one.  As for any ``autograd.Function``, the primal
+is computed by ``forward``, so a JVP through a call launches the forward
+kernel and the JVP kernel once each.
 """
 
 from __future__ import annotations
@@ -34,12 +44,14 @@ from . import build
 
 KERNEL = "fused_mp_fwd"
 KERNEL_BWD = "fused_mp_bwd"
+KERNEL_JVP = "fused_mp_jvp"
 
 # Kernel launches since the last reset; each is incremented only where its
 # CUDA kernel is launched.  ``chip_smoke.py`` zeroes them around the main
 # path.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+JVP_LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +160,24 @@ def mp_vjp_from_csr(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     return dw1, db1, dw2, db2, dh
 
 
+def mp_jvp_from_csr(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                    b2: torch.Tensor, h: torch.Tensor, csr: MPCsr,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the tangent: the derivative of
+    ``mp_from_csr`` in ``h`` along the direction ``v`` (N, D), as (N, D_out).
+    Per edge, W2·(1[pre > 0] ⊙ W1·[v_i; v_j; 0]), summed at the aggregation
+    node: the edge features, ``b1`` and ``b2`` carry no tangent."""
+    d = h.shape[1]
+    agg = _edge_rows(csr, h.device)
+    oth = csr.oth.long()
+    pre = torch.cat([h[agg], h[oth], csr.edge_attr], dim=-1) @ w1.T + b1
+    dpre = torch.cat([v[agg], v[oth]], dim=-1) @ w1[:, :2 * d].T
+    dmsg = (dpre * (pre > 0).to(pre.dtype)) @ w2.T
+    out = torch.zeros(h.shape[0], w2.shape[0], dtype=dmsg.dtype,
+                      device=h.device)
+    return out.index_add_(0, agg, dmsg)
+
+
 def fused_message_passing(w1: torch.Tensor, b1: torch.Tensor,
                           w2: torch.Tensor, b2: torch.Tensor, h: torch.Tensor,
                           csr: MPCsr) -> torch.Tensor:
@@ -175,13 +205,36 @@ def fused_mp_vjp(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
     return _fused_mp_bwd_cuda(w1, b1, w2, b2, h, csr, g)
 
 
+def fused_mp_jvp(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                 b2: torch.Tensor, h: torch.Tensor, csr: MPCsr,
+                 v: torch.Tensor) -> torch.Tensor:
+    """(N, D_out) tangent of ``fused_message_passing`` in ``h`` along
+    ``v``.  CPU tensors take the plain version; CUDA tensors launch the JVP
+    kernel."""
+    if h.device.type == "cpu":
+        return mp_jvp_from_csr(w1, b1, w2, b2, h, csr, v)
+    if h.device.type != "cuda":
+        raise ValueError(f"fused_mp: unsupported device {h.device}")
+    return _fused_mp_jvp_cuda(w1, b1, w2, b2, h, csr, v)
+
+
+def _no_weight_tangent(*tangents) -> None:
+    if any(t is not None for t in tangents):
+        raise NotImplementedError(
+            "fused_mp: forward-mode AD takes a tangent of h (of g for the "
+            "VJP) only, not of the weights")
+
+
 class _FusedMP(torch.autograd.Function):
-    """Forward kernel; its backward is ``_FusedMPVjp`` (the backward kernel)."""
+    """Forward kernel; its backward is ``_FusedMPVjp`` (the backward
+    kernel), its forward-mode rule the JVP kernel."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, h, csr):
         ctx.csr = csr
+        ctx.set_materialize_grads(False)     # an absent tangent stays None
         ctx.save_for_backward(w1, b1, w2, b2, h)
+        ctx.save_for_forward(w1, b1, w2, b2, h)
         return _fused_mp_cuda(w1, b1, w2, b2, h, csr)
 
     @staticmethod
@@ -190,14 +243,24 @@ class _FusedMP(torch.autograd.Function):
         return (*_FusedMPVjp.apply(w1, b1, w2, b2, h, g.contiguous(),
                                    ctx.csr), None)
 
+    @staticmethod
+    def jvp(ctx, dw1, db1, dw2, db2, dh, _):
+        _no_weight_tangent(dw1, db1, dw2, db2)
+        w1, b1, w2, b2, h = ctx.saved_tensors
+        return fused_mp_jvp(w1, b1, w2, b2, h, ctx.csr, dh.contiguous())
+
 
 class _FusedMPVjp(torch.autograd.Function):
-    """Backward kernel; its own backward differentiates the plain VJP."""
+    """Backward kernel; its own backward differentiates the plain VJP.  The
+    VJP is linear in ``g``, so its tangent along ``dg`` is the backward
+    kernel applied to ``dg``."""
 
     @staticmethod
     def forward(ctx, w1, b1, w2, b2, h, g, csr):
         ctx.csr = csr
+        ctx.set_materialize_grads(False)     # an absent tangent stays None
         ctx.save_for_backward(w1, b1, w2, b2, h, g)
+        ctx.save_for_forward(w1, b1, w2, b2, h)
         return fused_mp_vjp(w1, b1, w2, b2, h, csr, g)
 
     @staticmethod
@@ -205,10 +268,18 @@ class _FusedMPVjp(torch.autograd.Function):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
             outs = mp_vjp_from_csr(*inputs[:5], ctx.csr, inputs[5])
+        cotangents = [torch.zeros_like(o) if c is None else c
+                      for o, c in zip(outs, cotangents)]
         grads = torch.autograd.grad(outs, inputs, cotangents,
                                     allow_unused=True,
                                     create_graph=torch.is_grad_enabled())
         return (*grads, None)
+
+    @staticmethod
+    def jvp(ctx, dw1, db1, dw2, db2, dh, dg, _):
+        _no_weight_tangent(dw1, db1, dw2, db2, dh)
+        w1, b1, w2, b2, h = ctx.saved_tensors
+        return fused_mp_vjp(w1, b1, w2, b2, h, ctx.csr, dg.contiguous())
 
 
 # ctypes signatures of the C entry points (csrc/*.cu): a pointer or the
@@ -216,6 +287,7 @@ class _FusedMPVjp(torch.autograd.Function):
 # the sources and holds these to them).
 FWD_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 BWD_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+JVP_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # Blocks of the backward's first two passes at most (4 per SM of an H100):
 # the rows are walked with a fixed stride, so the partial sums, and with
 # them the result's bits, depend only on the shapes.
@@ -234,6 +306,14 @@ def _kernel_fn():
 def _bwd_kernel_fn():
     fn = build.load(KERNEL_BWD).psignn_fused_mp_bwd
     fn.argtypes = BWD_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _jvp_kernel_fn():
+    fn = build.load(KERNEL_JVP).psignn_fused_mp_jvp
+    fn.argtypes = JVP_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -333,3 +413,22 @@ def _fused_mp_bwd_cuda(w1, b1, w2, b2, h, csr: MPCsr, g):
     sizes = (dh * k_in, dh, d_out * dh, d_out)
     dw1, db1, dw2, db2 = params.split(sizes)
     return dw1.view(dh, k_in), db1, dw2.view(d_out, dh), db2, dh_out
+
+
+def _fused_mp_jvp_cuda(w1, b1, w2, b2, h, csr: MPCsr, v) -> torch.Tensor:
+    """The JVP kernel: the tangent along ``v``, one write per row."""
+    global JVP_LAUNCHES
+    d, dh, d_out, edge_dim = _check_call(w1, b1, w2, b2, h, csr)
+    n = h.shape[0]
+    _check("v", v, torch.float32, (n, d), h.device)
+    out = torch.empty((n, d_out), dtype=torch.float32, device=h.device)
+    rc = _jvp_kernel_fn()(
+        h.data_ptr(), v.data_ptr(), csr.row_ptr.data_ptr(),
+        csr.oth.data_ptr(), csr.edge_attr.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+        n, d, dh, d_out, edge_dim, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_mp: JVP kernel launch failed, "
+                           f"cudaError {rc}")
+    JVP_LAUNCHES += 1
+    return out

@@ -1,5 +1,5 @@
 """Fixed-point solvers: Picard, Anderson, Broyden (with an optional Armijo
-line search).
+line search), Newton and Newton-Krylov.
 
 Port of ``psignn_tpu/solvers.py`` (the reference's
 ``utilities/solver.py``).  JAX runs each solver as a ``lax.while_loop``
@@ -23,7 +23,12 @@ Kept exactly, solver by solver:
   unvisited trace entries stay 0;
 * ``picard`` (``forward_iteration``): z ← f(z) until the relative step
   norm is below eps, whatever ``stop_mode`` says; the last iterate is the
-  result; unvisited trace entries stay 0.
+  result; unvisited trace entries stay 0;
+* ``newton`` and ``newton_krylov``: ``picard`` on a Newton step of
+  g(z) = f(z) − z, with the dense Jacobian (demo scale) or with JAX's
+  single-restart batched GMRES (``_gmres``), whose matvec is a JVP.  Both
+  take ``jvp(x, v)``, the derivative of f at x along v; by default it is
+  forward-mode AD through f (``forward_jvp``).
 
 Broyden also takes the JAX package's rank-memory options: ``max_rank``
 caps its memory as a ring of the newest pairs, and ``lowrank_dtype``
@@ -59,8 +64,9 @@ loop runs while any rank goes on, and a rank that has stopped evaluates
 each step still (its collectives keep step with the others') but keeps
 its state, as the JAX loops freeze their carries.  Lanes take neither.
 
-``SolverResult.calls`` counts the evaluations of ``f``.  Newton and
-Newton-Krylov are not ported yet.
+``SolverResult.calls`` counts the evaluations of ``f``, and
+``SolverResult.jvps`` the JVPs of the Newton solvers (each evaluates ``f``
+once more, on dual tensors, when ``jvp`` is the default).
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 
 class SolverResult(NamedTuple):
@@ -81,6 +88,7 @@ class SolverResult(NamedTuple):
     trace: Optional[torch.Tensor]  # iterates (threshold+1 or +2, *x0.shape), or None
     trace_len: int                 # number of valid entries in `trace`
     calls: int                     # evaluations of f
+    jvps: int = 0                  # JVPs of f (Newton, Newton-Krylov)
 
 
 class Lanes:
@@ -125,9 +133,9 @@ class _Counted:
     def __init__(self, f: Callable):
         self.f, self.n = f, 0
 
-    def __call__(self, x):
+    def __call__(self, *args):
         self.n += 1
-        return self.f(x)
+        return self.f(*args)
 
 
 def _host(*scalars: torch.Tensor) -> np.ndarray:
@@ -867,19 +875,184 @@ def _broyden_lanes(f: Callable, x0: torch.Tensor, T: int, eps: float,
         trace_len=taken + 1, calls=f.n)
 
 
+# ---------------------------------------------------------------- Newton
+
+def forward_jvp(f: Callable) -> Callable:
+    """``jvp(x, v)``: the derivative of ``f`` at ``x`` along ``v``, by
+    forward-mode AD (``torch.autograd.forward_ad``; the fused message
+    passing's rule is ``kernels.fused_mp._FusedMP.jvp``).  Each call
+    evaluates ``f`` once on dual tensors."""
+    def jvp(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        with fwAD.dual_level():
+            out = fwAD.unpack_dual(f(fwAD.make_dual(x, v)))
+        return torch.zeros_like(out.primal) if out.tangent is None \
+            else out.tangent
+    return jvp
+
+
+def _no_hooks(name: str, reduce, sync) -> None:
+    if reduce is not None or sync is not None:
+        # JAX's newton and newton_krylov take neither, so its partitioned
+        # solve fails for them with a TypeError too
+        raise TypeError(f"{name} takes no reduce or sync: it cannot solve a "
+                        "state split over ranks (partitioned solve)")
+
+
+def _newton(name: str, direction: Callable, f: Callable, x0: torch.Tensor,
+            threshold: int, eps: float, keep_trace: bool,
+            lanes: Optional[Lanes], jvp: Optional[Callable], reduce,
+            sync) -> SolverResult:
+    """``picard`` on the Newton step z ← z + direction(J_g, g(z)) of
+    g(z) = f(z) − z, on the (G, C) layout of the state (one row per lane,
+    G = 1 without lanes); J_g v = ``jvp(z, v)`` − v."""
+    _no_hooks(name, reduce, sync)
+    _no_lane_options(name, lanes, keep_trace)
+    jvp = _Counted(jvp or forward_jvp(f))
+    f = _Counted(f)
+    shape = x0.shape
+    pad = (lambda x: x.reshape(1, -1)) if lanes is None else lanes.pad
+
+    def unpad(xp):
+        return xp.reshape(shape) if lanes is None else lanes.unpad(xp, shape)
+
+    def newton_step(z):
+        return z + unpad(direction(lambda vp: pad(jvp(z, unpad(vp))) - vp,
+                                   pad(f(z) - z)))
+
+    out = picard(newton_step, x0, threshold=threshold, eps=eps,
+                 keep_trace=keep_trace, lanes=lanes)
+    return out._replace(calls=f.n, jvps=jvp.n)
+
+
+def newton(f: Callable, x0: torch.Tensor, threshold: int = 50,
+           eps: float = 1e-5, stop_mode: str = "rel",
+           keep_trace: bool = False, lanes: Optional[Lanes] = None,
+           jvp: Optional[Callable] = None,
+           reduce: Optional[Callable] = None,
+           sync: Optional[Callable] = None) -> SolverResult:
+    """Dense-Jacobian Newton (JAX ``solvers.py:562-577``): ``picard`` on
+    z ← z − J⁻¹ g(z), g(z) = f(z) − z, ``stop_mode`` ignored.  J is built
+    column by column from one ``jvp`` a column, in a host loop, then
+    solved (demo scale: (N·D)² entries).  With ``lanes`` each lane's block
+    of the block-diagonal J takes n_max·D JVPs, one tangent per local
+    column set in every lane at once, and one batched solve."""
+    del stop_mode
+
+    def direction(Jg, gz):                               # gz: (G, C)
+        cols = []
+        for c in range(gz.shape[1]):
+            e = torch.zeros_like(gz)
+            e[:, c] = 1.0
+            cols.append(Jg(e))
+        return -torch.linalg.solve(torch.stack(cols, dim=2), gz)
+
+    return _newton("newton", direction, f, x0, threshold, eps, keep_trace,
+                   lanes, jvp, reduce, sync)
+
+
+# JAX's gmres defaults that newton_krylov keeps (tol, atol = 0, maxiter 1)
+GMRES_TOL = 1e-5
+NEWTON_KRYLOV_INNER = 20
+
+
+def newton_krylov(f: Callable, x0: torch.Tensor, threshold: int = 50,
+                  eps: float = 1e-5, stop_mode: str = "rel",
+                  inner_iters: int = NEWTON_KRYLOV_INNER,
+                  keep_trace: bool = False, lanes: Optional[Lanes] = None,
+                  jvp: Optional[Callable] = None,
+                  reduce: Optional[Callable] = None,
+                  sync: Optional[Callable] = None) -> SolverResult:
+    """Jacobian-free Newton-Krylov (JAX ``solvers.py:580-605``): ``picard``
+    on z ← z + dz, dz the single-restart GMRES solution of
+    J_g dz = −g(z) from 0 (``_gmres``), J_g v = ``jvp(z, v)`` − v: at most
+    ``inner_iters`` + 2 JVPs a step.  With ``lanes`` the Arnoldi process
+    runs per lane, one JVP of the whole state a step."""
+    del stop_mode
+    return _newton("newton_krylov",
+                   lambda Jg, gz: _gmres(Jg, -gz, inner_iters), f, x0,
+                   threshold, eps, keep_trace, lanes, jvp, reduce, sync)
+
+
+def _safe_normalize(x: torch.Tensor, thresh=None):
+    """Each row of ``x`` (G, C) over its norm, and the norms; a norm at or
+    below ``thresh`` (default the dtype's eps; or a (G,) tensor) gives the
+    zero row and norm 0 (JAX ``_safe_normalize``)."""
+    norm = _lane_norm(x)
+    if thresh is None:
+        thresh = torch.finfo(x.dtype).eps
+    use = norm > thresh
+    return (torch.where(use[:, None], x / norm[:, None], 0.0),
+            torch.where(use, norm, 0.0))
+
+
+def _gmres(A: Callable, b: torch.Tensor, restart: int) -> torch.Tensor:
+    """JAX's ``gmres(A, b, x0=0, tol=1e-5, restart=restart, maxiter=1,
+    solve_method="batched")`` (``jax/_src/scipy/sparse/linalg.py``
+    ``_gmres_solve`` with ``_gmres_batched``, JAX 0.9.0), step for step,
+    on each row of ``b`` (G, C); ``A`` maps (G, C) to (G, C) row by row.
+
+    A(0) is evaluated; a row whose residual norm is above 1e-5·‖b‖ takes
+    one restart of min(restart, C) Arnoldi steps, stopped at its
+    breakdown (a new vector of norm at most eps·‖A v‖); the projected
+    least-squares problem is solved through its normal equations by
+    Cholesky; then A(x) is evaluated for the restart's residual, which
+    maxiter = 1 leaves unused.  Rows that have stopped keep their state,
+    as JAX's vmapped loops freeze theirs.  JAX's iterated Gram-Schmidt
+    with ``max_iterations=2`` makes a single classical pass (its loop
+    test ``k < max_iterations − 1`` fails after the first), and so does
+    this copy.  One host read per Arnoldi step."""
+    G, C = b.shape
+    restart = min(restart, C)
+    dt, dev = b.dtype, b.device
+    x0 = torch.zeros_like(b)
+    unit_r, r_norm = _safe_normalize(b - A(x0))
+    run = r_norm > GMRES_TOL * _lane_norm(b)
+    active = run.cpu().numpy()
+    if not active.any():
+        return x0
+    V = b.new_zeros((G, restart + 1, C))
+    V[:, 0] = unit_r
+    H = torch.eye(restart, restart + 1, dtype=dt, device=dev).repeat(G, 1, 1)
+    eps = torch.finfo(dt).eps
+    k = 0
+    while k < restart and active.any():
+        v = A(V[:, k])
+        _, v_norm_0 = _safe_normalize(v)
+        h = torch.bmm(V, v[:, :, None])[:, :, 0]              # (G, R + 1)
+        q = v - torch.bmm(V.transpose(1, 2), h[:, :, None])[:, :, 0]
+        unit_v, v_norm_1 = _safe_normalize(q, eps * v_norm_0)
+        h[:, k + 1] = v_norm_1
+        mask = _lane_mask(active, dev)
+        V[:, k + 1] = torch.where(mask, unit_v, V[:, k + 1])
+        H[:, k] = torch.where(mask, h, H[:, k])
+        active = active & ~(v_norm_1 == 0).cpu().numpy()      # breakdown
+        k += 1
+    beta = b.new_zeros((G, restart + 1))
+    beta[:, 0] = r_norm
+    # _lstsq(Hᵀ, β): (H Hᵀ) y = H β, Cholesky (JAX: solve(assume_a='pos'))
+    L, info = torch.linalg.cholesky_ex(H @ H.transpose(1, 2))
+    y = torch.cholesky_solve(torch.bmm(H, beta[:, :, None]), L)[:, :, 0]
+    y = torch.where((info == 0)[:, None], y, torch.nan)
+    dx = torch.bmm(V[:, :-1].transpose(1, 2), y[:, :, None])[:, :, 0]
+    x = torch.where(run[:, None], x0 + dx, x0)
+    A(x)       # the restart's residual, as JAX evaluates it
+    return x
+
+
 SOLVERS = {
     "broyden": broyden,
     "anderson": anderson,
     "forward_iteration": picard,
     "picard": picard,
+    "newton": newton,
+    "newton_krylov": newton_krylov,
 }
-NOT_YET_PORTED = ("newton", "newton_krylov")
+# solvers that take ``jvp`` (the adjoint solve passes its exact tangent)
+JVP_SOLVERS = ("newton", "newton_krylov")
 
 
 def get_solver(name: str) -> Callable:
     """Solver by flag name."""
     if name in SOLVERS:
         return SOLVERS[name]
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(f"solver '{name}' is not yet ported")
     raise ValueError(f"unknown solver '{name}'; choose from {list(SOLVERS)}")

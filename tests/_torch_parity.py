@@ -112,8 +112,9 @@ def load_trained(path: str = CKPT):
 
 def kernel_route(monkeypatch):
     """Send CPU tensors down the CUDA route of ``fused_message_passing``
-    (the ``_FusedMP`` / ``_FusedMPVjp`` autograd wiring and the launch
-    counters), with each kernel replaced by its plain version.  The kernels
+    (the ``_FusedMP`` / ``_FusedMPVjp`` autograd wiring, their forward-mode
+    rules and the launch counters), with each kernel replaced by its plain
+    version.  The kernels
     themselves run only on the card (``chip_smoke.py``); this checks the
     wiring around them."""
     import torch
@@ -130,9 +131,16 @@ def kernel_route(monkeypatch):
         with torch.no_grad():
             return fm.mp_vjp_from_csr(w1, b1, w2, b2, h, csr, g)
 
+    def jvp(w1, b1, w2, b2, h, csr, v):
+        fm.JVP_LAUNCHES += 1
+        with torch.no_grad():
+            return fm.mp_jvp_from_csr(w1, b1, w2, b2, h, csr, v)
+
     monkeypatch.setattr(fm, "_fused_mp_cuda", fwd)
     monkeypatch.setattr(fm, "fused_mp_vjp", bwd)
+    monkeypatch.setattr(fm, "fused_mp_jvp", jvp)
     monkeypatch.setattr(ops, "fused_message_passing", fm._FusedMP.apply)
     monkeypatch.setattr(fm, "LAUNCHES", 0)
     monkeypatch.setattr(fm, "BWD_LAUNCHES", 0)
+    monkeypatch.setattr(fm, "JVP_LAUNCHES", 0)
     return fm

@@ -216,16 +216,25 @@ def test_deq_attach_under_no_grad_attaches_nothing():
 
 
 def test_unported_solver_refused():
+    """Newton and Newton-Krylov, once refused here, now resolve and solve
+    the toy fixed point (forward-mode AD through it for their JVPs)."""
     W, b, h0 = _numbers(seed=7)
+    f = Toy(W, b)
     for name in ("newton", "newton_krylov"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            fixed_point_forward(Toy(W, b), torch.from_numpy(h0), None,
-                                DEQConfig(solver=name))
+        out = fixed_point_forward(f, torch.from_numpy(h0), None,
+                                  DEQConfig(solver=name, fw_tol=1e-6))
+        assert out.lowest < 1e-6 and out.jvps > 0
+        with torch.no_grad():
+            np.testing.assert_allclose(f(out.result, torch.from_numpy(h0),
+                                         None).numpy(),
+                                       out.result.numpy(), atol=1e-5)
 
 
 @pytest.mark.parametrize("solver,ls", [("anderson", False),
                                        ("forward_iteration", False),
-                                       ("picard", False), ("broyden", True)])
+                                       ("picard", False), ("broyden", True),
+                                       ("newton", False),
+                                       ("newton_krylov", False)])
 def test_implicit_gradient_by_each_solver(solver, ls):
     """The forward and the adjoint solve by each solver give the unrolled
     gradient (1e-3, as ``test_implicit_gradient_matches_unrolled``), and

@@ -17,7 +17,8 @@ from psignn_tpu_torch.kernels import build
 from psignn_tpu_torch.kernels import fused_mp as fm
 
 ENTRY_POINTS = {"psignn_fused_mp_fwd": ("FWD_ARGTYPES", "_kernel_fn"),
-                "psignn_fused_mp_bwd": ("BWD_ARGTYPES", "_bwd_kernel_fn")}
+                "psignn_fused_mp_bwd": ("BWD_ARGTYPES", "_bwd_kernel_fn"),
+                "psignn_fused_mp_jvp": ("JVP_ARGTYPES", "_jvp_kernel_fn")}
 SIGNATURE = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 
 
@@ -86,11 +87,13 @@ def _inputs(n=13, d=10, edge_dim=3, seed=0):
 def recorded(monkeypatch):
     """The wrappers' calls into the (recorded) libraries, and every tensor
     they allocate with ``torch.empty``."""
-    calls, shapes = {"fwd": [], "bwd": []}, []
+    calls, shapes = {"fwd": [], "bwd": [], "jvp": []}, []
     monkeypatch.setattr(fm, "_kernel_fn",
                         lambda: _recorder(fm.FWD_ARGTYPES, calls["fwd"]))
     monkeypatch.setattr(fm, "_bwd_kernel_fn",
                         lambda: _recorder(fm.BWD_ARGTYPES, calls["bwd"]))
+    monkeypatch.setattr(fm, "_jvp_kernel_fn",
+                        lambda: _recorder(fm.JVP_ARGTYPES, calls["jvp"]))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=12345))
     empty = torch.empty
@@ -102,6 +105,7 @@ def recorded(monkeypatch):
     monkeypatch.setattr(torch, "empty", tracked)
     monkeypatch.setattr(fm, "LAUNCHES", 0)
     monkeypatch.setattr(fm, "BWD_LAUNCHES", 0)
+    monkeypatch.setattr(fm, "JVP_LAUNCHES", 0)
     return calls, shapes
 
 
@@ -134,3 +138,20 @@ def test_backward_wrapper_call(recorded):
     assert db2.data_ptr() == params + 4 * (n_params - 10)
     assert dh.shape == h.shape and dh.data_ptr() == args[14]
     assert (fm.BWD_MAX_BLOCKS, n_params) in shapes
+
+
+def test_jvp_wrapper_call(recorded):
+    """One call: h and the direction, then the CSR and the weights (no b2:
+    it carries no tangent), the widths as ints, the output written by the
+    kernel."""
+    calls, _ = recorded
+    w1, b1, w2, b2, h, csr, v = _inputs()
+    out = fm._fused_mp_jvp_cuda(w1, b1, w2, b2, h, csr, v)
+    (args,) = calls["jvp"]
+    assert args[:2] == (h.data_ptr(), v.data_ptr())
+    assert args[5:8] == (w1.data_ptr(), b1.data_ptr(), w2.data_ptr())
+    assert args[9:14] == (13, 10, 10, 10, 3) and args[14] == 12345
+    assert args[8] == out.data_ptr() and out.shape == (13, 10)
+    assert (fm.LAUNCHES, fm.BWD_LAUNCHES, fm.JVP_LAUNCHES) == (0, 0, 1)
+    with pytest.raises(ValueError, match="v has shape"):
+        fm._fused_mp_jvp_cuda(w1, b1, w2, b2, h, csr, v[:5])

@@ -67,9 +67,9 @@ def test_package_import_leaves_jax_out():
 
 def test_scan_covers_every_module():
     """The import checks above read every module of the training slice,
-    of the mixed slice, of the DSS and DS-GPS slice and of the
-    multi-device slice (and the rank workers), and both kernel sources
-    exist beside the kernel module."""
+    of the mixed slice, of the DSS and DS-GPS slice, of the multi-device
+    slice (and the rank workers) and of the Newton slice, and the three
+    kernel sources exist beside the kernel module."""
     scanned = {str(p.relative_to(PORT)) for p in _port_sources()
                if PORT in p.parents}
     assert {"deq.py", "cli/main.py", "data/generate.py", "data/reader.py",
@@ -80,9 +80,10 @@ def test_scan_covers_every_module():
             "eval/run_eval.py", "models/dss.py", "models/dsgps.py",
             "dist/__init__.py", "dist/multihost.py", "dist/dp.py",
             "dist/partition.py", "dist/partitioned.py",
-            "dist/dryrun.py"} <= scanned
+            "dist/dryrun.py", "compat.py", "profiling.py",
+            "entry.py"} <= scanned
     assert ROOT / "tests" / "_torch_dist.py" in _port_sources()
-    for name in ("fused_mp_fwd", "fused_mp_bwd"):
+    for name in ("fused_mp_fwd", "fused_mp_bwd", "fused_mp_jvp"):
         assert (build.SRC_DIR / f"{name}.cu").is_file()
 
 
@@ -125,8 +126,11 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "vjp = fused_mp.fused_mp_vjp(l1.weight, l1.bias, l2.weight, l2.bias,\n"
         "                            h, csr, torch.ones(2, 3))\n"
         "assert out.shape == (2, 3) and h.grad.shape == (2, 3)\n"
-        "assert len(vjp) == 5\n"
+        "jvp = fused_mp.fused_mp_jvp(l1.weight, l1.bias, l2.weight, l2.bias,\n"
+        "                            h, csr, torch.ones(2, 3))\n"
+        "assert len(vjp) == 5 and jvp.shape == (2, 3)\n"
         "assert fused_mp.LAUNCHES == 0 and fused_mp.BWD_LAUNCHES == 0\n"
+        "assert fused_mp.JVP_LAUNCHES == 0\n"
         "assert not build._LIBS\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,

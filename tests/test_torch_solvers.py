@@ -142,9 +142,8 @@ def test_get_solver():
     assert solvers.get_solver("anderson") is solvers.anderson
     assert solvers.get_solver("picard") is solvers.picard
     assert solvers.get_solver("forward_iteration") is solvers.picard
-    for name in ("newton", "newton_krylov"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            solvers.get_solver(name)
+    assert solvers.get_solver("newton") is solvers.newton
+    assert solvers.get_solver("newton_krylov") is solvers.newton_krylov
     with pytest.raises(ValueError):
         solvers.get_solver("nope")
     for solver in (solvers.broyden, solvers.anderson):

@@ -1,8 +1,8 @@
 """Port trainer and training CLI on the CPU: two epochs and a resume with
 their logs and checkpoints, a checkpoint the port trained answering a
 sweep request, the CLI's help, a tiny run, a mixed run and runs with the
-other solvers, the spike guard and the flags of paths not yet ported
-(``tests/test_trainer.py`` mirrored).  Data-parallel runs
+other solvers (Newton's included), the spike guard and the flags the CLI
+refuses (``tests/test_trainer.py`` mirrored).  Data-parallel runs
 (``--num_devices``) are in ``tests/test_torch_dist.py``.  The per-graph solves, Broyden's
 rank memory, bfloat16 data and resuming from a JAX checkpoint are in
 ``tests/test_torch_stacked.py``, ``test_torch_lowrank.py`` and
@@ -40,6 +40,16 @@ FAST_FLAGS = ["--fw_tol", "1e-3", "--fw_thres", "25", "--bw_tol", "1e-5",
 def data_dir(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("data"))
     generate_data(path, n_mesh=2, n_samples=5, hsize=0.25, seed=21,
+                  verbose=False)
+    return path
+
+
+@pytest.fixture(scope="module")
+def tiny_dir(tmp_path_factory):
+    """Meshes of 16 nodes, for dense Newton: each of its steps takes one
+    JVP per entry of the state."""
+    path = str(tmp_path_factory.mktemp("tiny"))
+    generate_data(path, n_mesh=2, n_samples=5, hsize=0.6, seed=21,
                   verbose=False)
     return path
 
@@ -270,22 +280,29 @@ def test_cli_trains_with_each_solver(tmp_path, data_dir, capsys, flags):
 
 
 @pytest.mark.parametrize("flags", [
-    # --num_devices is ported; Newton stays refused with it, as alone
-    pytest.param(["--family", "dsgps", "--num_devices", "2", "--solver",
-                  "newton"], id="family_dsgps_num_devices_2"),
-    pytest.param(["--num_devices", "2", "--solver", "newton_krylov"],
-                 id="num_devices_2"),
-    pytest.param(["--num_devices", "0", "--solver", "newton"],
-                 id="num_devices_0"),
-    ["--solver", "newton"], ["--solver", "newton_krylov"]],
+    ["--solver", "newton"], ["--solver", "newton_krylov"],
+    ["--stacked_batch", "--solver", "newton_krylov"],
+    ["--family", "dsgps", "--k", "3", "--solver", "newton"],
+    ["--num_devices", "2", "--solver", "newton_krylov"]],
     ids=lambda f: "_".join(f).strip("-"))
-def test_cli_refuses_unported_flags(tmp_path, data_dir, capsys, flags):
-    with pytest.raises(SystemExit) as e:
-        main(["--path_dataset", data_dir, "--path_results",
-              str(tmp_path / "x"), "--device", "cpu", *flags])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
-    assert not (tmp_path / "x").exists()
+def test_cli_trains_with_newton(tmp_path, data_dir, tiny_dir, capsys,
+                                flags):
+    """The Newton flags the CLI refused until they were ported each train
+    an epoch on the CPU: alone, per graph, ignored by DS-GPS (as in JAX)
+    and on two data-parallel ranks.  Newton converges in a few steps, so
+    both solves stop at 6 (dense Newton: 2, on 16-node meshes)."""
+    out = str(tmp_path / "run")
+    dense = flags == ["--solver", "newton"]
+    thres = "2" if dense else "6"
+    main(["--path_dataset", tiny_dir if dense else data_dir,
+          "--path_results", out, "--max_epochs", "1", "--batch_size", "3",
+          "--val_sradius", "0", *FAST_FLAGS, "--fw_thres", thres,
+          "--bw_thres", thres, *flags])
+    assert "Training finished" in capsys.readouterr().out
+    ck = load_checkpoint(os.path.join(out, "ckpt", "final_model.ckpt"))
+    if "--family" not in flags:
+        assert ck["hyperparameters"]["solver"] == flags[-1]
+    assert all(np.isfinite(v) for v in ck["hist_train"]["loss"])
 
 
 @pytest.mark.parametrize("flag", ["--pallas", "--rcm", "--cache_batches"])
