@@ -283,9 +283,27 @@ def _rank_main(rank: int, args, plan: RankPlan, init_method: str) -> None:
     _train(get_parser(), args, plan, rank)
 
 
+def build_loaders(args, device, n_devices: int = 1, rank: int = 0):
+    """The (train, validation) ``GraphLoader``s of a run of ``args`` on
+    ``device``: rank ``rank``'s shard of them when ``n_devices`` > 1."""
+    from ..data.reader import GraphLoader, load_dataset, split_dataset
+
+    shard = (dict(n_devices=n_devices, rank=rank) if n_devices > 1 else {})
+    samples = load_dataset(args.path_dataset, family=args.family,
+                           variant=args.variant, stats=args.stats,
+                           precision=args.precision)
+    train, val, _ = split_dataset(samples, family=args.family,
+                                  variant=args.variant, seed=args.seed)
+    stacked = args.stacked_batch and args.family == "psignn"
+    return (GraphLoader(train, batch_size=args.batch_size, shuffle=True,
+                        seed=args.seed, device=device, stacked=stacked,
+                        **shard),
+            GraphLoader(val, batch_size=args.batch_size, device=device,
+                        stacked=stacked, **shard))
+
+
 def _train(p: argparse.ArgumentParser, args, plan: RankPlan,
            rank: int) -> None:
-    from ..data.reader import GraphLoader, load_dataset, split_dataset
     from ..train import Trainer, TrainConfig
 
     if rank == 0:           # only rank 0 clears and writes
@@ -293,19 +311,7 @@ def _train(p: argparse.ArgumentParser, args, plan: RankPlan,
             clear_results(p, args.path_results)
         os.makedirs(args.path_results, exist_ok=True)
     device = plan.rank_device(rank)
-    shard = (dict(n_devices=plan.n, rank=rank) if plan.n > 1 else {})
-
-    samples = load_dataset(args.path_dataset, family=args.family,
-                           variant=args.variant, stats=args.stats,
-                           precision=args.precision)
-    train, val, _ = split_dataset(samples, family=args.family,
-                                  variant=args.variant, seed=args.seed)
-    stacked = args.stacked_batch and args.family == "psignn"
-    loader_train = GraphLoader(train, batch_size=args.batch_size,
-                               shuffle=True, seed=args.seed,
-                               device=device, stacked=stacked, **shard)
-    loader_val = GraphLoader(val, batch_size=args.batch_size,
-                             device=device, stacked=stacked, **shard)
+    loader_train, loader_val = build_loaders(args, device, plan.n, rank)
     cfg = TrainConfig(
         family=args.family, model_cfg=build_model_cfg(args),
         max_epochs=args.max_epochs, lr=args.lr, lr_deq=args.lr_deq,
@@ -314,7 +320,7 @@ def _train(p: argparse.ArgumentParser, args, plan: RankPlan,
         gradient_clip=gradient_clip(args), jac_weight=args.jac_weight,
         min_loss_save=args.min_loss_save, path_results=args.path_results,
         seed=args.seed, val_sradius=bool(args.val_sradius),
-        data_parallel=plan.n > 1, stacked_batch=stacked,
+        data_parallel=plan.n > 1, stacked_batch=loader_train.stacked,
         spike_guard=args.spike_guard, spike_factor=args.spike_factor,
         spike_patience=args.spike_patience, device=device)
 

@@ -1,7 +1,8 @@
 """Random blob-domain triangular meshes (numpy + scipy only).
 
 Port of ``psignn_tpu/data/meshgen.py`` (``Mesh``, ``blob_mesh``,
-``mixed_blob_mesh`` and their helpers).  The domain family is the
+``mixed_blob_mesh``, ``circle_mesh``, ``mesh_from_dolfin_h5`` and their
+helpers).  The domain family is the
 reference's: perturbed circle points, a periodic cubic spline through them,
 boundary samples at ≈``hsize`` arc-length spacing, a jittered hex lattice
 inside, four Laplacian smoothing passes, and a Delaunay triangulation
@@ -219,3 +220,55 @@ def mixed_blob_mesh(radius: float = 1.0, hsize: float = 0.08,
     interior = _interior_points(boundary, hsize, rng)
     interior = _laplacian_smooth(boundary, interior)
     return _triangulate(boundary, interior, bnd_tags)
+
+
+def circle_mesh(radius: float = 1.0, hsize: float = 0.08,
+                seed: Optional[int] = None) -> Mesh:
+    """Plain circle domain (the growing-geometry benchmark's circle
+    generator, tests/special_geo): ≈``hsize``-spaced boundary points on the
+    circle, the blob's interior lattice and smoothing, and the Delaunay
+    triangles whose centroid lies in the circle."""
+    rng = np.random.default_rng(seed)
+    n_bnd = max(8, int(round(2 * np.pi * radius / hsize)))
+    theta = np.linspace(0, 2 * np.pi, n_bnd, endpoint=False)
+    boundary = radius * np.stack([np.cos(theta), np.sin(theta)], axis=1)
+    interior = _interior_points(boundary, hsize, rng)
+    interior = _laplacian_smooth(boundary, interior)
+    points = np.concatenate([boundary, interior], axis=0)
+    tri = Delaunay(points)
+    cent = points[tri.simplices].mean(axis=1)
+    # centroid-in-circle test with tolerance for boundary-chord triangles
+    keep = np.linalg.norm(cent, axis=1) <= radius
+    triangles = tri.simplices[keep].astype(np.int32)
+    bnd_tags = np.full(n_bnd, 101, np.int32)
+    return _finalize_mesh(points, triangles, n_bnd, bnd_tags)
+
+
+def mesh_from_dolfin_h5(path: str, tag_dirichlet: int = 101) -> Mesh:
+    """A DOLFIN-HDF5 mesh (the reference's ``build_mesh`` output:
+    ``mesh/coordinates``, ``mesh/topology``, ``facet/topology``,
+    ``facet/values``; dirichlet/dataset/build_mesh.py:111-115) as a
+    ``Mesh``, its vertices on facets tagged ``tag_dirichlet`` the boundary.
+    Reads the file with ``h5py``, imported here: a host without it gets an
+    ``ImportError`` when it asks for such a mesh, and not before."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"mesh_from_dolfin_h5({path!r}) reads HDF5 with "
+                          f"h5py, which this Python does not have") from e
+
+    with h5py.File(path, "r") as f:
+        points = np.asarray(f["mesh/coordinates"])[:, :2].astype(np.float64)
+        triangles = np.asarray(f["mesh/topology"]).astype(np.int32)
+        facets = np.asarray(f["facet/topology"]).astype(np.int64)
+        fvals = np.asarray(f["facet/values"]).astype(np.int64)
+
+    n = points.shape[0]
+    boundary_mask = np.zeros(n, bool)
+    boundary_tag = np.zeros(n, np.int32)
+    tagged = np.unique(facets[fvals == tag_dirichlet])
+    boundary_mask[tagged] = True
+    boundary_tag[tagged] = tag_dirichlet
+    return Mesh(points=points, triangles=triangles,
+                boundary_mask=boundary_mask, boundary_tag=boundary_tag,
+                boundary_loop=None)

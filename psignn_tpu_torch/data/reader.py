@@ -3,8 +3,9 @@ families.
 
 Port of ``psignn_tpu/data/reader.py``: ``REF_STATS``,
 ``psignn_sample_from_fem``, ``dss_sample_from_fem``, ``load_dataset`` of a
-reference-format ``.npy`` directory, the 60/20/20 ``split_dataset`` and a
-``GraphLoader`` of concatenated ``Graph`` batches.
+reference-format ``.npy`` directory, the 60/20/20 ``split_dataset``, a
+``GraphLoader`` of concatenated ``Graph`` batches and ``prefetch``, which
+builds a loader's next batches on a background thread.
 
 * ``family='psignn'|'dsgps'``: the full system A (diagonal included) with
   x/b/sol/prb_data/tags/pos/edge_attr/a_ij; the mixed variant adds the
@@ -376,3 +377,59 @@ class GraphLoader:
                 chunk = shard_samples(chunk, self.batch_size,
                                       self.n_devices)[self.rank]
             yield batch_graphs(chunk, device=self.device)
+
+
+def prefetch(iterable, depth: int = 2):
+    """Yield the items of ``iterable``, in order, from a background thread
+    that runs up to ``depth`` items ahead (JAX ``reader.py:411-441``).
+
+    Around a ``GraphLoader`` the thread runs the loader's own ``__iter__``,
+    so the host packing and the host→device copy of batch k+1 overlap the
+    solver's dispatch of batch k.  The copy goes on the thread's current
+    stream, the device's default stream, which the consumer's kernels also
+    use, so a batch is ready before any kernel that reads it.  The worker's
+    exception is raised in the consumer after the items before it.  Closing
+    the generator early (a consumer that stops, or fails) stops the worker,
+    joins it (it ends once the item it is building is done) and drops the
+    items it queued, so no device batch is left behind."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+    err = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        try:
+            for x in iterable:
+                if not put(x):
+                    return
+        except BaseException as e:  # raised again in the consumer
+            err.append(e)
+        put(end)
+
+    t = threading.Thread(target=worker, name="prefetch", daemon=True)
+    t.start()
+    try:
+        while True:
+            x = q.get()
+            if x is end:
+                break
+            yield x
+        if err:
+            raise err[0]
+    finally:
+        stop.set()
+        t.join()
+        while not q.empty():
+            q.get_nowait()

@@ -27,6 +27,11 @@ one device with one concatenated batch per step:
   ``GraphLoader(stacked=True)`` does.  The iteration logs then hold each
   step's means over the graphs, as the JAX trainer writes them.
 
+* both loops draw their batches through ``data.reader.prefetch``, as the
+  JAX trainer's do (``trainer.py:345-346``, ``:385-388``): the next batch
+  is packed and copied to the device while the step runs; each
+  data-parallel rank prefetches its own shard.
+
 * ``data_parallel``: one process a rank (``dist.multihost``; the CLI's
   ``--num_devices``), the loaders giving each rank its shard; the train
   steps and the validation losses are averaged over the ranks (JAX
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..data.reader import prefetch
 from ..dist.dp import make_mesh
 from ..models.psignn import psignn_forward, psignn_forward_stacked
 from ..weights import FAMILIES
@@ -218,7 +224,7 @@ class Trainer:
             pending.clear()
             return sums, n
 
-        for i, graph in enumerate(self.loader_train):
+        for i, graph in enumerate(prefetch(self.loader_train)):
             if self.psignn:
                 res = train_step(self.model, self.opts, graph, self.mc, lrs,
                                  c.gradient_clip, c.jac_weight,
@@ -252,7 +258,7 @@ class Trainer:
     def validation_loop(self, epoch: int):
         n_batches = len(self.loader_val)
         vecs, srads = [], []
-        for graph in self.loader_val:
+        for graph in prefetch(self.loader_val):
             with torch.no_grad():
                 if self.psignn:
                     forward = (psignn_forward_stacked if self.c.stacked_batch

@@ -19,6 +19,8 @@ from psignn_tpu_torch.kernels import build
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "psignn_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "optax", "matplotlib", "psignn_tpu")
+# imported only inside the function that needs it: the card's host lacks it
+FUNCTION_ONLY = ("h5py",)
 
 
 def _port_sources():
@@ -38,11 +40,30 @@ def _imported_roots(path: Path):
             yield node.module.split(".")[0]
 
 
+def _import_time_roots(path: Path):
+    """Top-level names of the absolute imports that run when ``path`` is
+    imported: every import outside a function body."""
+    stack = [ast.parse(path.read_text(), str(path))]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        stack.extend(ast.iter_child_nodes(node))
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    late = sorted(set(_import_time_roots(path)) & set(FUNCTION_ONLY))
+    assert not late, f"{path.relative_to(ROOT)} imports {late} on import"
 
 
 def test_package_import_leaves_jax_out():
@@ -68,8 +89,10 @@ def test_package_import_leaves_jax_out():
 def test_scan_covers_every_module():
     """The import checks above read every module of the training slice,
     of the mixed slice, of the DSS and DS-GPS slice, of the multi-device
-    slice (and the rank workers) and of the Newton slice, and the three
-    kernel sources exist beside the kernel module."""
+    slice (and the rank workers), of the Newton slice and of the parity,
+    nstep-study and curves slice, and the three kernel sources exist beside
+    the kernel module.  ``h5py`` is imported inside
+    ``meshgen.mesh_from_dolfin_h5`` and nowhere at import time."""
     scanned = {str(p.relative_to(PORT)) for p in _port_sources()
                if PORT in p.parents}
     assert {"deq.py", "cli/main.py", "data/generate.py", "data/reader.py",
@@ -81,8 +104,12 @@ def test_scan_covers_every_module():
             "dist/__init__.py", "dist/multihost.py", "dist/dp.py",
             "dist/partition.py", "dist/partitioned.py",
             "dist/dryrun.py", "compat.py", "profiling.py",
-            "entry.py"} <= scanned
+            "entry.py", "eval/parity.py", "eval/nstep_study.py",
+            "eval/curves.py", "eval/registry.py"} <= scanned
     assert ROOT / "tests" / "_torch_dist.py" in _port_sources()
+    meshgen = PORT / "data" / "meshgen.py"
+    assert "h5py" in set(_imported_roots(meshgen))
+    assert "h5py" not in set(_import_time_roots(meshgen))
     for name in ("fused_mp_fwd", "fused_mp_bwd", "fused_mp_jvp"):
         assert (build.SRC_DIR / f"{name}.cu").is_file()
 
