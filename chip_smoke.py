@@ -148,6 +148,18 @@ Phases, each printing one JSON line:
                 mesh's 8 right-hand sides on the card and the CPU: step
                 counts printed, the first 4 iterates and the mean MSE
                 held.
+24. figures   — the paper figures' path, ``eval.figures`` (the JAX
+                package's ``tools/make_figures.py``): the iterate traces of
+                the trained Ψ-GNN (fw_thres 300) and of both DS-GPS
+                checkpoints (k = 30) on fresh factory samples, on the card
+                (launches: two per f_θ call; exactly 2k, mixed 3k), then on
+                the CPU: the DS-GPS traces within 1e-4 · max(1, max|u|), the
+                Ψ-GNN's first 4 iterates within 1e-5 and, solved to fw_tol
+                1e-7, its final MSE within 1e-3.  Then the drawing modules:
+                without matplotlib (the card's host has none) a drawing
+                call must raise an ``ImportError`` naming it; with
+                matplotlib the figures are drawn from the card's traces and
+                their files checked.
 
 Then a ``seconds`` line (each phase's wall seconds; ``graphs`` builds the
 headline mesh and the three 50-mesh batches), one ``{"kernels": [...]}``
@@ -1104,7 +1116,11 @@ def phase_trainer(device) -> None:
     test-split table of ``run_eval`` (mixed).  The resumed run starts from
     CKPT's last epoch and answers from its final checkpoint (its
     validation residual on these meshes need not beat the checkpoint's
-    best).  Returns each run's (forward, backward) launches."""
+    best).  Each run draws its loss and gradient plots, or, without
+    matplotlib, logs once that it does not.  Returns each run's (forward,
+    backward) launches."""
+    import importlib.util
+
     from psignn_tpu_torch.cli.main import main as train_main
     from psignn_tpu_torch.data.generate import add_dss_variable, generate_data
     from psignn_tpu_torch.eval import run_eval
@@ -1112,7 +1128,9 @@ def phase_trainer(device) -> None:
     from psignn_tpu_torch.eval.curves import parse_epoch_times
     from psignn_tpu_torch.eval.sweep import growing_geometry_sweep
     from psignn_tpu_torch.kernels import fused_mp as mp
+    from psignn_tpu_torch.train import TrainConfig
     from psignn_tpu_torch.weights import load_jax_checkpoint
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
     root = os.path.join(".chipwork", "smoke_trainer")
     shutil.rmtree(root, ignore_errors=True)
     data = {}
@@ -1154,6 +1172,19 @@ def phase_trainer(device) -> None:
             with open(os.path.join(logs, name)) as f:
                 lines[name] = len(f.read().strip().splitlines())
         metrics = os.path.join(logs, "train_metrics.csv")
+        # the trainer draws its plots at every plot_every-th epoch, or
+        # logs once that matplotlib is missing
+        with open(metrics) as f:
+            plots = dict(files=sorted(n for n in os.listdir(logs)
+                                      if n.endswith(".png")),
+                         not_drawn_lines=f.read().count("Plots not drawn"))
+        if (epochs - 1) % TrainConfig.plot_every:
+            want_plots = dict(files=[], not_drawn_lines=0)
+        elif has_mpl:
+            want_plots = dict(files=["gradients.png", "track_losses.png"],
+                              not_drawn_lines=0)
+        else:
+            want_plots = dict(files=[], not_drawn_lines=1)
         logged = trainer_log_agreement(
             metrics, os.path.join(results, "ckpt", "final_model.ckpt"))
         if run in TRAINER_PREFETCH_RUNS:
@@ -1201,7 +1232,7 @@ def phase_trainer(device) -> None:
                    generate_s=gen_s, train_s=train_s,
                    fwd_launches=launches[0], bwd_launches=launches[1],
                    log_lines=lines, checkpoints=ckpts, request=req,
-                   parsed_val_epochs=logged)
+                   parsed_val_epochs=logged, plots=plots)
         emit("trainer", **rec)
         all_launches[run] = launches
         # Ψ-GNN: header + 3 steps in each iteration log, one spectral
@@ -1211,6 +1242,7 @@ def phase_trainer(device) -> None:
                 or lines["forward_iteration.csv"] != (4 if psignn else 1)
                 or lines["backward_iteration.csv"] != (4 if psignn else 1)
                 or lines["spectral_radius.csv"] != (2 if psignn else 1)
+                or plots != want_plots
                 or not finite(req["res"], req["mse"])):
             raise RuntimeError(f"trainer phase failed: {rec}")
     return all_launches
@@ -2588,6 +2620,15 @@ NSTEP_STUDY_SAMPLES = 8
 # card's kernel sums in another order, so 1e-4), and the answers by MSE
 NSTEP_EARLY_STEPS = 4
 NSTEP_EARLY_RTOL = 1e-4
+# the figures phase: tests/test_torch_figures.py's tolerances; the Ψ-GNN
+# trace's final MSE is held where the solves converge (at the
+# checkpoint's fw_tol 1e-5 they stop in a tail whose MSE still moves by
+# several per cent)
+FIGURE_EARLY_STEPS = 4
+FIGURE_EARLY_RTOL = 1e-5
+FIGURE_CONVERGED_TOL = 1e-7
+FIGURE_MSE_RTOL = 1e-3
+FIGURE_DSGPS_UTOL = 1e-4
 
 
 def captured(fn, *args) -> str:
@@ -2820,6 +2861,142 @@ def phase_nstep_study(device) -> int:
     return launches[0]
 
 
+def figure_traces(device, sample: dict, mixed: dict) -> dict:
+    """``eval.figures``' traces on ``device``: ``psignn_trace`` of the
+    trained Ψ-GNN on ``sample``, ``dsgps_trace`` of the DS-GPS Dirichlet
+    checkpoint on ``sample`` and of the mixed one on ``mixed``.  Each
+    record: the forward launches counted from 0 just before the trace,
+    the launches its f_θ calls (Ψ-GNN) or k steps imply, seconds, and the
+    trace itself under ``trace``."""
+    from psignn_tpu_torch.eval import figures
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    from psignn_tpu_torch.models import DsgpsConfig, PsignnConfig
+    from psignn_tpu_torch.models.psignn import UpdateFunction
+    from psignn_tpu_torch.weights import load_jax_checkpoint
+
+    def hp(ckpt):
+        return load_jax_checkpoint(ckpt)["hyperparameters"]
+
+    out = {}
+    for name, ckpt, s in (("psignn", CKPT, sample),
+                          ("dsgps_dirichlet", DSGPS_CKPT, sample),
+                          ("dsgps_mixed", DSGPS_MIXED_CKPT, mixed)):
+        calls = []
+        hook = torch.nn.modules.module.register_module_forward_hook(
+            lambda m, args, res: calls.append(1)
+            if isinstance(m, UpdateFunction) else None)
+        try:
+            sync(device)
+            mp.LAUNCHES = 0
+            t0 = time.perf_counter()
+            if name == "psignn":
+                trace = figures.psignn_trace(ckpt, s, device)
+                cfg = PsignnConfig.from_hyperparameters(hp(ckpt))
+                want = mp_per_call(cfg) * len(calls)
+            else:
+                trace = figures.dsgps_trace(ckpt, s, device)
+                cfg = DsgpsConfig.from_hyperparameters(hp(ckpt))
+                want = mp_per_step(cfg) * cfg.k
+            sync(device)
+            seconds = time.perf_counter() - t0
+        finally:
+            hook.remove()
+        out[name] = dict(launches=mp.LAUNCHES, expected_launches=want,
+                         f_calls=len(calls), seconds=seconds,
+                         n_nodes=int(s["x"].shape[0]), trace=trace)
+    return out
+
+
+def phase_figures(device, smi: str) -> dict:
+    """The figure path of ``eval.figures`` on fresh factory samples
+    (radius 1, hsize 0.08): the traces on the card with their launches,
+    then on the CPU, held to the tests' tolerances; then the drawing
+    modules, by whether matplotlib is installed here.  Returns each
+    trace's forward launches."""
+    import importlib.util
+    import tempfile
+
+    from psignn_tpu_torch.eval import figures, vis
+    from psignn_tpu_torch.train import plots  # noqa: F401  (imports)
+    t_phase = time.perf_counter()
+    sample = figures.factory_sample("dirichlet")
+    mixed = figures.factory_sample("mixed")
+    gpu = figure_traces(device, sample, mixed)
+    cpu = figure_traces(torch.device("cpu"), sample, mixed)
+    launches = {}
+    for name, rec in gpu.items():
+        g, c = rec["trace"], cpu[name]["trace"]
+        gu, cu = g["u_trace"], c["u_trace"]
+        agree = dict(name=name, n_nodes=rec["n_nodes"],
+                     launches=rec["launches"],
+                     expected_launches=rec["expected_launches"],
+                     f_calls=rec["f_calls"], seconds_gpu=rec["seconds"],
+                     seconds_cpu=cpu[name]["seconds"],
+                     iterates_gpu=len(gu), iterates_cpu=len(cu))
+        if name == "psignn":
+            k = FIGURE_EARLY_STEPS
+            gap = (np.linalg.norm((gu[:k] - cu[:k])[..., 0], axis=1)
+                   / np.linalg.norm(cu[:k, :, 0], axis=1))
+            conv = [figures.psignn_trace(CKPT, sample, d,
+                                         fw_tol=FIGURE_CONVERGED_TOL)
+                    for d in (device, torch.device("cpu"))]
+            mse_g, mse_c = (float(t["mse_trace"][-1]) for t in conv)
+            agree.update(nstep_gpu=g["nstep"], nstep_cpu=c["nstep"],
+                         early_gap=float(gap.max()),
+                         early_rtol=FIGURE_EARLY_RTOL,
+                         converged_tol=FIGURE_CONVERGED_TOL,
+                         converged_nstep_gpu=conv[0]["nstep"],
+                         converged_nstep_cpu=conv[1]["nstep"],
+                         mse_gpu=mse_g, mse_cpu=mse_c,
+                         mse_rel_diff=abs(mse_g - mse_c) / mse_c,
+                         mse_rtol=FIGURE_MSE_RTOL)
+            ok = (len(gu) > k and len(cu) > k
+                  and agree["early_gap"] <= FIGURE_EARLY_RTOL
+                  and agree["mse_rel_diff"] <= FIGURE_MSE_RTOL)
+        else:
+            tol = FIGURE_DSGPS_UTOL * max(1.0, float(np.abs(cu).max()))
+            agree.update(u_max_abs_diff=float(np.abs(gu - cu).max())
+                         if gu.shape == cu.shape else None, u_tol=tol,
+                         res_last_gpu=float(g["res"][-1]),
+                         res_last_cpu=float(c["res"][-1]))
+            ok = gu.shape == cu.shape and agree["u_max_abs_diff"] <= tol
+        emit("figures_trace", **agree)
+        if (not ok or rec["launches"] != rec["expected_launches"]
+                or rec["launches"] == 0 or not np.isfinite(gu).all()):
+            raise RuntimeError(f"figure trace {name} failed: {agree}")
+        launches["figures_" + name] = rec["launches"]
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    draw = dict(matplotlib=has_mpl)
+    s, tr = sample, gpu["psignn"]["trace"]
+    with tempfile.TemporaryDirectory() as tmp:
+        if has_mpl:
+            paths = [vis.plot_iterative_montage(
+                         s["pos"], tr["u_trace"], os.path.join(tmp, "m.png"),
+                         sol=s["sol"], res_trace=tr["res_trace"]),
+                     vis.plot_paper_figure(
+                         s["pos"], s["tags"], tr["u_trace"], s["sol"],
+                         os.path.join(tmp, "p.png"),
+                         res_trace=tr["res_trace"], nstep=tr["nstep"])]
+            draw["bytes"] = [os.path.getsize(p) for p in paths]
+            failed = min(draw["bytes"]) == 0
+        else:
+            # the expected outcome on a host without matplotlib
+            try:
+                vis.plot_solution_map(s["pos"], s["sol"],
+                                      os.path.join(tmp, "x.png"))
+            except ImportError as e:
+                draw.update(import_error=str(e), name=e.name)
+            failed = (draw.get("name") != "matplotlib"
+                      or bool(os.listdir(tmp)))
+    emit("figures_draw", **draw)
+    if failed:
+        raise RuntimeError(f"figures drawing failed: {draw}")
+    emit("figures", smi=smi, phase_s=time.perf_counter() - t_phase,
+         trace_s_gpu={n: r["seconds"] for n, r in gpu.items()},
+         trace_s_cpu={n: r["seconds"] for n, r in cpu.items()})
+    return launches
+
+
 def device_breakdown(run, top: int = 8, ranges=()) -> dict:
     """One more run of ``run`` under ``torch.profiler``: the device's kernel
     time in all and by kernel name, and the busy share of the unprofiled
@@ -2902,6 +3079,7 @@ def main() -> None:
     trainer = timed("trainer", phase_trainer, device)
     parity = timed("parity", phase_parity, device, smi)
     nstep = timed("nstep_study", phase_nstep_study, device)
+    figures = timed("figures", phase_figures, device, smi)
     emit("seconds", **seconds)
     # each path's launches, counted from 0 just before it ran
     fwd["launches_by_path"] = dict(
@@ -2909,7 +3087,7 @@ def main() -> None:
         lowrank=lowrank, zoo=zoo, iterative=iterative, several_init=several,
         **{path: n[0] for path, n in dist.items()},
         **{"trainer_" + run: n[0] for run, n in trainer.items()},
-        **parity, nstep_study=nstep)
+        **parity, nstep_study=nstep, **figures)
     bwd["launches_by_path"] = dict(
         train_step=bwd["launches"], stacked_train_step=stacked[1],
         **{path: n[1] for path, n in dist.items() if n[1]},

@@ -2,18 +2,19 @@
 another's, such as the reference's checked-in logs.
 
 Port of ``psignn_tpu/eval/curves.py`` (``parse_val``,
-``parse_epoch_times``, ``compare``, ``write_report``, ``main``) and of the
-two log readers of ``psignn_tpu/eval/vis.py`` that draw nothing
-(``load_sweep_csv``, ``parse_val_curve``).  Both packages, and the
-reference, write the same line-oriented log (``Validation Epoch 12 :
-Train : ...  Res : ...  MSE : ...``); the report gives the validation
-residual and MSE at matched epochs.  The overlay plot (JAX's ``plot``)
-needs matplotlib, which this package does not use: ``--plot`` exits 2.
+``parse_epoch_times``, ``compare``, ``write_report``, ``plot``, ``main``).
+Both packages, and the reference, write the same line-oriented log
+(``Validation Epoch 12 : Train : ...  Res : ...  MSE : ...``); the report
+gives the validation residual and MSE at matched epochs, and ``--plot``
+draws the two validation-residual curves (matplotlib, imported when it
+draws).  The log readers ``load_sweep_csv`` and ``parse_val_curve`` live
+in ``vis`` and are imported here too.
 
     python -m psignn_tpu_torch.eval.curves \\
         --ours results/psignn_torch_run/logs/train_metrics.csv \\
         --ref results/psignn_dirichlet/logs/train_metrics.csv \\
-        --label psignn --out results/eval/curves_psignn.md
+        --label psignn --out results/eval/curves_psignn.md \\
+        --plot results/eval/curves_psignn.png
 """
 
 from __future__ import annotations
@@ -21,10 +22,10 @@ from __future__ import annotations
 import argparse
 import os
 import re
-from typing import Dict
 
-import numpy as np
 import torch
+
+from .vis import load_pyplot, load_sweep_csv, parse_val_curve  # noqa: F401
 
 _VAL = re.compile(
     r"Validation Epoch (\d+) :.*?Res : ([0-9.eE+-]+).*?MSE : ([0-9.eE+-]+)")
@@ -108,40 +109,26 @@ def write_report(rows, ov, rv, label, out_path, times=None, device=None):
     return out_path
 
 
-def load_sweep_csv(path: str) -> Dict[float, Dict[str, float]]:
-    """Parse a ``growing_geometry_sweep`` CSV (metric rows × radius cols)."""
-    with open(path) as f:
-        lines = [l.strip().split(",") for l in f if l.strip()]
-    radii = [float(x) for x in lines[0][1:]]
-    out = {r: {} for r in radii}
-    for row in lines[1:]:
-        for r, v in zip(radii, row[1:]):
-            out[r][row[0]] = float(v)
-    return out
-
-
-def parse_val_curve(csv_path: str, key: str = "Res"):
-    """(epochs, values) of a per-epoch validation metric from a
-    train_metrics.csv (ours or the reference's — same line format).
-
-    Watchdog/resume restarts append duplicate 'Validation Epoch N' lines
-    (the running checkpoint lags the log by up to an epoch), so epochs
-    are deduplicated keeping the LAST occurrence and returned sorted —
-    position in the returned arrays is NOT the epoch number; use the
-    epoch column."""
-    by_epoch = {}
-    pat = re.compile(r"Validation Epoch (\d+) :(.*)")
-    kpat = re.compile(rf"{key} : ([0-9.eE+-]+)")
-    with open(csv_path) as f:
-        for line in f:
-            m = pat.search(line)
-            if not m:
-                continue
-            km = kpat.search(m.group(2))
-            if km:
-                by_epoch[int(m.group(1))] = float(km.group(1))
-    eps = np.asarray(sorted(by_epoch))
-    return eps, np.asarray([by_epoch[e] for e in eps])
+def plot(ov, rv, label, path, device=None):
+    """The validation residual of ``ov`` and ``rv`` (``parse_val``'s
+    dicts) against the epoch at ``path``; the legend names the run's
+    ``device`` (``device_name``)."""
+    plt, _ = load_pyplot()
+    fig, ax = plt.subplots(figsize=(6, 4))
+    for vals, name, color in (
+            (ov, f"psignn_tpu_torch ({device_name(device)})", "#2a7de1"),
+            (rv, "reference (2 GPUs)", "#b3b9c4")):
+        es = sorted(vals)
+        ax.plot(es, [vals[e][0] for e in es], label=name, color=color)
+    ax.set_yscale("log")
+    ax.set_xlabel("epoch")
+    ax.set_ylabel("validation residual")
+    ax.set_title(f"{label}: validation residual vs reference")
+    ax.legend()
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
 
 
 def main(argv=None):
@@ -152,11 +139,8 @@ def main(argv=None):
     p.add_argument("--label", default="run")
     p.add_argument("--out", default=None)
     p.add_argument("--plot", default=None,
-                   help="the JAX package's overlay plot: not drawn here")
+                   help="draw the validation-residual overlay here (PNG)")
     args = p.parse_args(argv)
-    if args.plot:
-        p.exit(2, f"{p.prog}: --plot needs matplotlib, which "
-                  f"psignn_tpu_torch does not use\n")
 
     rows, ov, rv = compare(args.ours, args.ref)
     times = parse_epoch_times(args.ours)
@@ -166,6 +150,8 @@ def main(argv=None):
     if args.out:
         print("wrote", write_report(rows, ov, rv, args.label, args.out,
                                     times))
+    if args.plot:
+        print("wrote", plot(ov, rv, args.label, args.plot))
 
 
 if __name__ == "__main__":

@@ -13,9 +13,9 @@ sets the means beside the reference's published numbers (BASELINE.md):
 As in JAX, every predictor runs a config built afresh, not the
 checkpoint's: Broyden at ``fw_tol`` / ``fw_thres`` (the backward cap equal
 to the forward's), DS-GPS at k = 100, DSS at k = 30.  The sweep's CSVs go
-to ``--csv_dir``; the comparison figure JAX draws there needs matplotlib,
-which this package does not use.  ``--pallas`` (TPU only) is accepted and
-ignored.  The report goes to ``results/eval/PARITY_torch.md`` by default,
+to ``--csv_dir``, with JAX's comparison figure ``radius_comparison.png``
+(``vis.plot_radius_comparison``; matplotlib, imported when it draws).
+``--pallas`` (TPU only) is accepted and ignored.  The report goes to ``results/eval/PARITY_torch.md`` by default,
 not to JAX's ``PARITY.md``, which is the JAX package's record.
 
     python -m psignn_tpu_torch.eval.parity
@@ -186,9 +186,10 @@ def main(argv=None):
                                      out_dir=args.csv_dir or None,
                                      device=args.device)
     if args.csv_dir:
-        print("wrote the sweep CSVs to", args.csv_dir, "(the radius "
-              "comparison figure needs matplotlib, which psignn_tpu_torch "
-              "does not use: not drawn)")
+        from .vis import plot_radius_comparison
+        plot_radius_comparison(args.csv_dir,
+                               os.path.join(args.csv_dir,
+                                            "radius_comparison.png"))
     proto = ("Protocol: radii {} with {} meshes per radius respectively "
              "(reference: tests/test_multiple.py, 3 meshes/radius), "
              "fw_thres {}, fw_tol {}. Times are wall-clock seconds of one "

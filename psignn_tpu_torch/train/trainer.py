@@ -41,8 +41,13 @@ one device with one concatenated batch per step:
   The Hutchinson probes come from a generator seeded from (seed, rank),
   as JAX folds the rank into its key.
 
-The loss and gradient plots are left out (the JAX trainer already runs
-without matplotlib).
+* every ``plot_every`` epochs rank 0 draws ``track_losses.png`` and
+  ``gradients.png`` into the logs (``train/plots.py``; JAX
+  ``trainer.py:487-493``), the bars the ℓ2 norm of each parameter's
+  clipped gradient from the epoch's last batch, named by its JAX tree
+  path (``_last_grad_norms``).  Without matplotlib (the card's host) one
+  line of ``train_metrics.csv`` says so and training goes on; JAX
+  swallows every exception of its plots, the port only that one.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ import dataclasses
 import math
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +69,7 @@ from ..weights import FAMILIES
 from .checkpoint import (load_checkpoint, optimizer_state_from_numpy,
                          optimizer_state_to_numpy, save_checkpoint)
 from .optim import PlateauScheduler, make_adam, make_optimizers
+from .plots import plot_gradients, plot_losses
 from .step import (psignn_loss, train_step, unrolled_forward,
                    unrolled_train_step)
 
@@ -86,6 +92,7 @@ class TrainConfig:
     min_loss_save: float = 1e10
     path_results: str = "results/psignn_torch_run/"
     seed: int = 1234
+    plot_every: int = 2
     val_sradius: bool = True
     lr_floor: float = 1e-7
     data_parallel: bool = False
@@ -156,6 +163,8 @@ class Trainer:
         self.lr_scale = 1.0          # halved by the spike guard
         self._spike_count = 0
         self.training_time = 0.0
+        self._last_grad_norms: Dict[str, float] = {}
+        self._can_plot = True       # False once matplotlib was missing
         # Hutchinson and power-method probes, decorrelated over the ranks
         self.generator = torch.Generator().manual_seed(
             config.seed + 1 + 1_000_003 * rank)
@@ -249,6 +258,7 @@ class Trainer:
         for k in LOSS_KEYS:
             accum[k] += run[k]
             self.hist_train[k].append(accum[k] / n_batches)
+        self._last_grad_norms = self._grad_norms()
         self._log("train_metrics.csv",
                   "\nTraining Epoch {} : \t Train : {:.5e} \t Res : {:.5e}"
                   " \t Jac : {:.5e} \t Enc : {:.5e} \t AE : {:.5e}"
@@ -355,12 +365,42 @@ class Trainer:
                     # recovered state
                     self._save(self._make_checkpoint(epoch), "running_model")
 
+            if epoch % c.plot_every == 0 and self.writer:
+                self._plot(epoch)
+
         if checkpoint is None:
             checkpoint = self._make_checkpoint(c.max_epochs - 1)
         self._save(checkpoint, "final_model")
         if self.mesh:       # every rank returns with the run's files written
             self.mesh.barrier()
         return self.model
+
+    def _grad_norms(self) -> Dict[str, float]:
+        """The ℓ2 norm of each parameter's gradient as the last step left
+        it (clipped), keyed by the parameter's path in the JAX tree
+        (``function/layers/0/phi_to/0/w``) in JAX's order; a parameter
+        with no gradient (DS-GPS's ``laynorm``) reads 0, as JAX's zero
+        gradient."""
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in self.model.named_parameters()}
+        return {"/".join(str(k) for k in path):
+                float(np.linalg.norm(np.ravel(leaf)))
+                for path, leaf in _tree_paths(self._to_jax(grads))}
+
+    def _plot(self, epoch: int) -> None:
+        """The loss curves and the gradient bars; without matplotlib, a
+        line in the log, once."""
+        if not self._can_plot:
+            return
+        try:
+            plot_losses(self.hist_train, self.hist_val, self.path_logs)
+            plot_gradients(self._last_grad_norms, epoch, self.path_logs)
+        except ImportError as e:
+            if e.name != "matplotlib":
+                raise
+            self._can_plot = False
+            self._log("train_metrics.csv",
+                      f"\nPlots not drawn from epoch {epoch} on: {e}")
 
     def _read_checkpoint(self, path: str, missing_ok: bool = False
                          ) -> Optional[Dict[str, Any]]:
@@ -459,3 +499,17 @@ class Trainer:
             scheds = ckpt.get("torch_optim", ckpt)
             self.sched_deq.load_state_dict(scheds["sched_deq"])
             self.sched_ae.load_state_dict(scheds["sched_ae"])
+
+
+def _tree_paths(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
+    """(path, leaf) of a nested dict/list tree in
+    ``jax.tree_util.tree_flatten_with_path``'s order: dict keys sorted,
+    list entries by index."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_paths(v, prefix + (i,))
+    else:
+        yield prefix, tree

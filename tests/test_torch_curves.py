@@ -3,7 +3,8 @@
 ``eval/vis.py`` and ``eval/registry.py``, on the ``OURS`` text of
 ``tests/test_curves.py``, on every ``results/*/logs/train_metrics.csv`` of
 the repository and on a log the port's trainer writes.  Parsing is exact
-(tolerance 0); ``--plot`` exits 2."""
+(tolerance 0); ``--plot`` draws JAX's figure from the same data, its
+legend naming the port's device."""
 
 import glob
 import os
@@ -136,12 +137,46 @@ def test_registry_paths_match_jax():
         _below(jax_registry.REF, jax_registry.REF_CURVES)
 
 
-def test_plot_exits_2(ours, capsys):
-    with pytest.raises(SystemExit) as e:
-        curves.main(["--ours", ours, "--ref", ours, "--plot", "x.png"])
-    assert e.value.code == 2
-    assert "needs matplotlib, which psignn_tpu_torch does not use" in \
-        capsys.readouterr().err
+def _drawn(monkeypatch, draw):
+    """The figures ``draw()`` closes, kept open to be read."""
+    import matplotlib.pyplot as plt
+    figs = []
+    monkeypatch.setattr(plt, "close", figs.append)
+    draw()
+    monkeypatch.undo()
+    for fig in figs:
+        plt.close(fig)
+    return figs
+
+
+def test_plot_exits_2(ours, tmp_path, monkeypatch, capsys):
+    """``--plot``, which exited 2 while the port drew no figures, draws
+    JAX's overlay: the same lines (x and y data, colours), scales, labels
+    and title; only the legend's device differs, and names no TPU."""
+    ref = os.path.join(ROOT, "results/dss_dirichlet/logs/train_metrics.csv")
+    path = tmp_path / "c.png"
+    (mine,) = _drawn(monkeypatch, lambda: curves.main(
+        ["--ours", ours, "--ref", ref, "--label", "dss", "--plot",
+         str(path)]))
+    assert path.stat().st_size > 0
+    assert capsys.readouterr().out.splitlines()[-1] == f"wrote {path}"
+    (theirs,) = _drawn(monkeypatch, lambda: jax_curves.plot(
+        curves.parse_val(ours), curves.parse_val(ref), "dss",
+        str(tmp_path / "j.png")))
+    (a,), (b,) = mine.axes, theirs.axes
+    assert len(a.get_lines()) == len(b.get_lines()) == 2
+    for la, lb in zip(a.get_lines(), b.get_lines()):
+        np.testing.assert_array_equal(la.get_xydata(), lb.get_xydata())
+        assert la.get_color() == lb.get_color()
+    for get in ("get_xscale", "get_yscale", "get_xlabel", "get_ylabel",
+                "get_title"):
+        assert getattr(a, get)() == getattr(b, get)(), get
+    labels = [t.get_text() for t in a.get_legend().get_texts()]
+    assert labels == [f"psignn_tpu_torch ({curves.device_name()})",
+                      "reference (2 GPUs)"]
+    assert [t.get_text() for t in b.get_legend().get_texts()][1:] == \
+        labels[1:]
+    assert not any("TPU" in t for t in labels)
 
 
 def test_main_prints_rows_and_writes_report(ours, tmp_path, capsys):

@@ -18,9 +18,13 @@ from psignn_tpu_torch.kernels import build
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "psignn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "matplotlib", "psignn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "psignn_tpu")
 # imported only inside the function that needs it: the card's host lacks it
-FUNCTION_ONLY = ("h5py",)
+FUNCTION_ONLY = ("h5py", "matplotlib", "PIL")
+# the only modules that may import the drawing packages (inside functions)
+DRAWING = ("matplotlib", "PIL")
+DRAWING_MODULES = ("eval/vis.py", "train/plots.py", "eval/curves.py",
+                   "eval/figures.py")
 
 
 def _port_sources():
@@ -60,7 +64,10 @@ def _import_time_roots(path: Path):
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):
-    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    drawing = PORT in path.parents and \
+        str(path.relative_to(PORT)) in DRAWING_MODULES
+    forbidden = FORBIDDEN if drawing else FORBIDDEN + DRAWING
+    bad = sorted(set(_imported_roots(path)) & set(forbidden))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
     late = sorted(set(_import_time_roots(path)) & set(FUNCTION_ONLY))
     assert not late, f"{path.relative_to(ROOT)} imports {late} on import"
@@ -68,8 +75,8 @@ def test_no_forbidden_imports(path):
 
 def test_package_import_leaves_jax_out():
     """Importing every module of the package (and the smoke script, and
-    the rank workers of the multi-rank tests) loads no JAX, optax or
-    matplotlib module."""
+    the rank workers of the multi-rank tests) loads no JAX or optax
+    module, nor h5py, matplotlib or Pillow."""
     script = (
         "import importlib, json, pkgutil, sys\n"
         "import psignn_tpu_torch as p\n"
@@ -79,7 +86,7 @@ def test_package_import_leaves_jax_out():
         "sys.path.insert(0, 'tests')\n"
         "import _torch_dist\n"
         "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0] in"
-        f" {list(FORBIDDEN)!r})))\n")
+        f" {list(FORBIDDEN + FUNCTION_ONLY)!r})))\n")
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -90,9 +97,10 @@ def test_scan_covers_every_module():
     """The import checks above read every module of the training slice,
     of the mixed slice, of the DSS and DS-GPS slice, of the multi-device
     slice (and the rank workers), of the Newton slice and of the parity,
-    nstep-study and curves slice, and the three kernel sources exist beside
-    the kernel module.  ``h5py`` is imported inside
-    ``meshgen.mesh_from_dolfin_h5`` and nowhere at import time."""
+    nstep-study and curves slice and of the figures slice, and the three
+    kernel sources exist beside the kernel module.  ``h5py`` is imported
+    inside ``meshgen.mesh_from_dolfin_h5`` and nowhere at import time;
+    matplotlib and Pillow inside ``vis``'s drawing functions."""
     scanned = {str(p.relative_to(PORT)) for p in _port_sources()
                if PORT in p.parents}
     assert {"deq.py", "cli/main.py", "data/generate.py", "data/reader.py",
@@ -105,11 +113,15 @@ def test_scan_covers_every_module():
             "dist/partition.py", "dist/partitioned.py",
             "dist/dryrun.py", "compat.py", "profiling.py",
             "entry.py", "eval/parity.py", "eval/nstep_study.py",
-            "eval/curves.py", "eval/registry.py"} <= scanned
+            "eval/curves.py", "eval/registry.py", "eval/vis.py",
+            "train/plots.py", "eval/figures.py"} <= scanned
     assert ROOT / "tests" / "_torch_dist.py" in _port_sources()
     meshgen = PORT / "data" / "meshgen.py"
     assert "h5py" in set(_imported_roots(meshgen))
     assert "h5py" not in set(_import_time_roots(meshgen))
+    vis = PORT / "eval" / "vis.py"
+    assert {"matplotlib", "PIL"} <= set(_imported_roots(vis))
+    assert not {"matplotlib", "PIL"} & set(_import_time_roots(vis))
     for name in ("fused_mp_fwd", "fused_mp_bwd", "fused_mp_jvp"):
         assert (build.SRC_DIR / f"{name}.cu").is_file()
 

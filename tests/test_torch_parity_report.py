@@ -17,8 +17,8 @@ package's ``psignn_tpu.eval.parity``:
   the title and the sentence naming the package and device differ;
 * the checkpoints, gmsh meshes and published numbers are JAX's;
 * without checkpoints the result is empty and ``main`` prints JAX's skip
-  line; with them ``main`` writes the report and the sweep's CSVs, and
-  says the radius figure is not drawn."""
+  line; with them ``main`` writes the report, the sweep's CSVs and the
+  radius figure, ``radius_comparison.png``."""
 
 import dataclasses
 import os
@@ -34,7 +34,7 @@ from psignn_tpu.eval.sweep import growing_geometry_sweep as jax_sweep
 from psignn_tpu_torch.data.fem import solve_poisson
 from psignn_tpu_torch.data.meshgen import blob_mesh
 from psignn_tpu_torch.eval import nstep_study, parity, registry
-from psignn_tpu_torch.eval.curves import load_sweep_csv
+from psignn_tpu_torch.eval.vis import load_sweep_csv
 from psignn_tpu_torch.eval.sweep import SAMPLE_FORMS, growing_geometry_sweep
 from psignn_tpu_torch.graphs import batch_graphs
 from psignn_tpu_torch.models import (dsgps_inference, dss_inference,
@@ -194,8 +194,8 @@ def test_main_writes_report_and_csvs(reference_pts, tmp_path, capsys):
         assert f"## {family}" in text
         rows = load_sweep_csv(str(csv_dir / f"{family}_results.csv"))
         assert set(rows) == {0.6}
-    printed = capsys.readouterr().out
-    assert "needs matplotlib" in printed and "wrote" in printed
+    assert (csv_dir / "radius_comparison.png").stat().st_size > 0
+    assert capsys.readouterr().out.strip() == f"wrote {out}"
 
 
 def test_tables_and_paths_match_jax():
