@@ -160,6 +160,19 @@ Phases, each printing one JSON line:
                 call must raise an ``ImportError`` naming it; with
                 matplotlib the figures are drawn from the card's traces and
                 their files checked.
+25. operations — the run operations of ``scripts/torch`` as a user runs
+                them: ``generate_datasets.sh`` at 3 meshes × 30 samples;
+                one epoch of each of the six training protocols, its CLI
+                arguments parsed from its script (the DS-GPS Dirichlet one
+                through its warm start), in this process with their
+                launches counted, each run's ``relaunch.cmd`` and
+                ``trainer.pid`` checked; the Ψ-GNN Dirichlet protocol
+                killed (SIGKILL) after its first epoch and relaunched from
+                its ``relaunch.cmd``, which must resume; ``eval_trained.sh``
+                on the card and on the CPU, the tables compared; the
+                compute cells (those not tagged ``draw``) of
+                ``notebooks/demo_torch.ipynb`` and
+                ``comparatives_torch.ipynb``.
 
 Then a ``seconds`` line (each phase's wall seconds; ``graphs`` builds the
 headline mesh and the three 50-mesh batches), one ``{"kernels": [...]}``
@@ -2997,6 +3010,412 @@ def phase_figures(device, smi: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ operations
+
+# the six training protocols of scripts/torch/ and the dataset each reads
+PROTOCOLS = (("psignn_dirichlet", "dirichlet"), ("psignn_mixed", "mixed"),
+             ("dss_dirichlet", "dirichlet"), ("dsgps_dirichlet", "dirichlet"),
+             ("dsgps_mixed", "mixed"), ("dsgps_k70", "dirichlet"))
+SCRIPTS = os.path.join("scripts", "torch")
+# scripts/torch/generate_datasets.sh at this size: a 60/20/20 split leaves
+# 54 training samples, one full batch of 50 and a short one
+OPS_DATA = dict(N_MESH="3", N_SAMPLES="30")
+OPS_KILL_EPOCHS = 3
+OPS_TIMEOUT = 300
+# eval_trained.sh's tables, card against CPU: the unrolled families'
+# rows, and Ψ-GNN's MSE at its checkpoint's fw_tol 1e-5 (the solves stop
+# at different iterates below the tolerance)
+OPS_TABLE_RTOL = 1e-4
+OPS_PSIGNN_MSE_RTOL = 2e-2
+EVAL_RUNS = (("psignn", "psignn_dirichlet"), ("dsgps", "dsgps_dirichlet"),
+             ("dss", "dss_dirichlet"))
+NOTEBOOKS = ("demo_torch", "comparatives_torch")
+# cells with this tag draw or display; the card's host has no matplotlib
+DRAW_TAG = "draw"
+
+
+def _subs(line: str) -> tuple:
+    """``line`` with each ``$(...)`` replaced by a placeholder word, and
+    the substitutions: (text, quoted) by placeholder."""
+    out, subs, i = [], {}, 0
+    while True:
+        j = line.find("$(", i)
+        if j < 0:
+            return "".join(out) + line[i:], subs
+        depth, k = 0, j + 1
+        while True:
+            depth += {"(": 1, ")": -1}.get(line[k], 0)
+            if depth == 0:
+                break
+            k += 1
+        key = f"@@SUB{len(subs)}@@"
+        subs[key] = (line[j:k + 1], line[j - 1:j] == '"'
+                     and line[k + 1:k + 2] == '"')
+        out.append(line[i:j] + key)
+        i = k + 1
+
+
+def _expand(text: str, env: dict) -> str:
+    """``$NAME``, ``${NAME}`` and ``${NAME:-default}`` expanded from
+    ``env`` (the last to its default when ``env`` lacks it); other
+    variables kept as written."""
+    import re
+
+    def one(m):
+        name = m.group(1) or m.group(3)
+        if m.group(2) is not None:
+            return env.get(name, m.group(2))
+        return env.get(name, m.group(0))
+
+    return re.sub(r"\$\{([A-Za-z_]\w*)(?::-([^}]*))?\}|\$([A-Za-z_]\w*)",
+                  one, text)
+
+
+def script_vars(text: str) -> dict:
+    """The top-level variable defaults of a shell script: ``NAME=value``
+    and ``NAME=${X:-value}`` at the start of a line."""
+    import re
+    import shlex
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r"([A-Z_][A-Z0-9_]*)=(\S*)\s*$", line)
+        if not m or "$(" in m.group(2):
+            continue
+        value = m.group(2)
+        d = re.fullmatch(r"\$\{[A-Za-z0-9_]+:-(.*)\}", value)
+        out[m.group(1)] = d.group(1) if d else (shlex.split(value) or [""])[0]
+    return out
+
+
+def script_commands(path: str, env: dict = None) -> list:
+    """The ``python -m <module>`` commands of a shell script, in order:
+    each a dict of ``module``, ``argv`` (its arguments, with the script's
+    top-level variable defaults, overridden by ``env``, expanded; a quoted
+    ``"$(...)"`` argument kept as written; ``"$@"`` dropped) and
+    ``clauses`` (each bare ``$(...)`` among them, such as a resume
+    clause, with its variables expanded)."""
+    import re
+    import shlex
+    with open(path) as f:
+        text = f.read().replace("\\\n", " ")
+    env = {**script_vars(text), **(env or {})}
+    cmds = []
+    for line in text.splitlines():
+        if line.lstrip().startswith("#") or not re.search(
+                r"-m\s+psignn_tpu", line):
+            continue
+        line, subs = _subs(line)
+        line = re.sub(r'"\$\{?@[^"]*"', "", line)
+        tokens = shlex.split(_expand(line, env))
+        tokens = tokens[tokens.index("-m") + 1:]
+        tokens = tokens[:next((i for i, t in enumerate(tokens)
+                               if t in ("&", "|", ";", "&&", "||")
+                               or re.match(r"\d?>", t)), len(tokens))]
+        argv, clauses = [], []
+        for t in tokens[1:]:
+            if t in subs and not subs[t][1]:
+                clauses.append(_expand(subs[t][0], env))
+                continue
+            for key, (sub, _) in subs.items():
+                t = t.replace(key, sub)
+            argv.append(t)
+        cmds.append(dict(module=tokens[0], argv=argv, clauses=clauses))
+    return cmds
+
+
+def _script_env(**kw) -> dict:
+    """The environment a smoke run gives a script of ``scripts/torch``:
+    this interpreter, and ``kw``."""
+    return dict(os.environ, PYTHON=sys.executable, **kw)
+
+
+def relaunch_check(results: str) -> dict:
+    """What ``relaunch.cmd`` and ``trainer.pid`` of a finished run say."""
+    import shlex
+    with open(os.path.join(results, "relaunch.cmd")) as f:
+        argv = shlex.split(f.read())
+    running = os.path.join(results, "ckpt", "running_model.ckpt")
+    return dict(names_port=argv[1:3] == ["-m", "psignn_tpu_torch.cli.main"],
+                resumes_running=(argv.count("--resume") == 1
+                                 and argv[-2:] == ["--resume", running]),
+                pid_file_left=os.path.exists(
+                    os.path.join(results, "trainer.pid")))
+
+
+def _load_script_module(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(SCRIPTS, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ops_protocols(data: dict, root: str, device) -> dict:
+    """One epoch of each of the six protocols of ``scripts/torch``: its
+    CLI arguments parsed from the script, with ``--max_epochs 1 --device
+    <device>`` appended, run in this process; the DS-GPS Dirichlet one
+    resumes from ``make_warmae_ckpt.py``'s warm start as a fresh run of
+    its script does.  Returns each protocol's (forward, backward)
+    launches."""
+    from psignn_tpu_torch.cli.main import main as train_main
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    from psignn_tpu_torch.weights import load_jax_checkpoint
+    launches = {}
+    for run, variant in PROTOCOLS:
+        out = os.path.join(root, "runs", run)
+        env = dict(DATA=data[variant], OUT=out)
+        if run == "dsgps_dirichlet":
+            warm = os.path.join(root, "warmae", "warm_init.ckpt")
+            captured(_load_script_module("make_warmae_ckpt").main,
+                     ["--out", os.path.dirname(warm)])
+            env["WARM"] = f"--resume {warm}"
+        (cmd,) = script_commands(
+            os.path.join(SCRIPTS, f"train_{run}.sh"), env)
+        argv = cmd["argv"] + ["--max_epochs", "1", "--device", str(device)]
+        sync(device)
+        mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        captured(train_main, argv)
+        sync(device)
+        seconds = time.perf_counter() - t0
+        n = (mp.LAUNCHES, mp.BWD_LAUNCHES)
+        final = load_jax_checkpoint(os.path.join(out, "ckpt",
+                                                 "final_model.ckpt"))
+        rec = dict(protocol=run, seconds=seconds, fwd_launches=n[0],
+                   bwd_launches=n[1],
+                   val_res=final["hist_val"]["residual_loss"][-1],
+                   epochs=len(final["hist_val"]["loss"]),
+                   warm_start=run == "dsgps_dirichlet",
+                   clauses=cmd["clauses"], **relaunch_check(out))
+        emit("operations_protocol", **rec)
+        if (0 in n or rec["epochs"] != 1 or not finite(rec["val_res"])
+                or not rec["names_port"] or not rec["resumes_running"]
+                or rec["pid_file_left"]):
+            raise RuntimeError(f"protocol {run} failed: {rec}")
+        launches["operations_" + run] = n
+    return launches
+
+
+def ops_kill_relaunch(data: dict, root: str, device, extra=(),
+                      env=None) -> dict:
+    """The Ψ-GNN Dirichlet protocol at ``--max_epochs 3`` in a process of
+    its own, killed (SIGKILL) once its ``trainer.pid`` and a running
+    checkpoint of its first epoch are on disk, then ``bash -c "$(cat
+    relaunch.cmd)"``: the relaunch must resume (three epochs in the
+    history, each validated once, the last the checkpoint's epoch 2) and
+    remove ``trainer.pid`` at its clean exit.  ``extra`` flags go to the
+    script, ``env`` to both processes' environment."""
+    import signal
+
+    from psignn_tpu_torch.weights import load_jax_checkpoint
+    out = os.path.join(root, "kill")
+    pid_file = os.path.join(out, "trainer.pid")
+    running = os.path.join(out, "ckpt", "running_model.ckpt")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        ["bash", os.path.join(SCRIPTS, "train_psignn_dirichlet.sh"),
+         data["dirichlet"], out, "--max_epochs", str(OPS_KILL_EPOCHS),
+         "--device", str(device), *extra], env=_script_env(**(env or {})),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        while not (os.path.exists(pid_file) and os.path.exists(running)):
+            if proc.poll() is not None or (time.perf_counter() - t0
+                                           > OPS_TIMEOUT):
+                raise RuntimeError(f"the run to kill ended or stalled: "
+                                   f"{proc.poll()} {proc.stderr.read()}")
+            time.sleep(0.1)
+        with open(pid_file) as f:
+            pid = int(f.read())
+        os.kill(pid, signal.SIGKILL)
+        proc.wait(OPS_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    killed_s = time.perf_counter() - t0
+    killed_epochs = len(load_jax_checkpoint(running)["hist_val"]["loss"])
+    pid_left = os.path.exists(pid_file)
+    with open(os.path.join(out, "relaunch.cmd")) as f:
+        relaunch = f.read()
+    t1 = time.perf_counter()
+    again = subprocess.run(["bash", "-c", relaunch],
+                           env=_script_env(**(env or {})),
+                           capture_output=True, text=True,
+                           timeout=OPS_TIMEOUT)
+    relaunch_s = time.perf_counter() - t1
+    final = load_jax_checkpoint(os.path.join(out, "ckpt",
+                                             "final_model.ckpt"))
+    with open(os.path.join(out, "logs", "train_metrics.csv")) as f:
+        log = f.read()
+    validated = [log.count(f"Validation Epoch {e} ")
+                 for e in range(OPS_KILL_EPOCHS)]
+    rec = dict(pid=pid, killed_after_s=killed_s, killed_rc=proc.returncode,
+               killed_epochs=killed_epochs, pid_file_after_kill=pid_left,
+               relaunch_rc=again.returncode, relaunch_s=relaunch_s,
+               epochs=len(final["hist_val"]["loss"]),
+               final_epoch=final["epoch"], validated=validated,
+               **relaunch_check(out))
+    emit("operations_kill_relaunch", **rec)
+    if (again.returncode or rec["epochs"] != OPS_KILL_EPOCHS
+            or rec["final_epoch"] != OPS_KILL_EPOCHS - 1
+            or not 1 <= killed_epochs < OPS_KILL_EPOCHS
+            or validated != [1] * OPS_KILL_EPOCHS or not pid_left
+            or rec["pid_file_left"] or not rec["resumes_running"]):
+        raise RuntimeError(f"kill and relaunch failed: {rec} "
+                           f"{again.stderr[-2000:]}")
+    return rec
+
+
+def ops_tables(data: dict, root: str, device) -> dict:
+    """``eval_trained.sh`` on the Dirichlet data's test split for the three
+    trained checkpoints, on the card and, at the same time, on the CPU
+    (``--device cpu``): the unrolled families' rows within
+    ``OPS_TABLE_RTOL``, Ψ-GNN's MSE within ``OPS_PSIGNN_MSE_RTOL``; each
+    side's Ψ-GNN steps are printed."""
+    from psignn_tpu_torch.data.reader import (GraphLoader, load_dataset,
+                                              split_dataset)
+    from psignn_tpu_torch.eval.run_eval import load_predictor
+    # both sides at once: each side's three processes mostly start up
+    t0 = time.perf_counter()
+    procs = {}
+    for side, dev in (("gpu", str(device)), ("cpu", "cpu")):
+        with open(os.path.join(root, f"eval_{side}.err"), "w") as err:
+            procs[side] = subprocess.Popen(
+                ["bash", os.path.join(SCRIPTS, "eval_trained.sh"),
+                 "--device", dev],
+                env=_script_env(DATA=data["dirichlet"],
+                                EVAL_OUT=os.path.join(root, "eval_" + side)),
+                stdout=subprocess.DEVNULL, stderr=err)
+    tables = {}
+    for side, proc in procs.items():
+        if proc.wait(OPS_TIMEOUT):
+            with open(os.path.join(root, f"eval_{side}.err")) as f:
+                raise RuntimeError(f"eval_trained.sh on {side}: "
+                                   f"{f.read()[-2000:]}")
+        tables[side] = dict(seconds=time.perf_counter() - t0)
+        for _, run in EVAL_RUNS:
+            with open(os.path.join(root, "eval_" + side, run,
+                                   "test_metrics.json")) as f:
+                tables[side][run] = json.load(f)
+    steps = {}
+    _, _, test = split_dataset(load_dataset(data["dirichlet"]))
+    for side, d in (("gpu", device), ("cpu", torch.device("cpu"))):
+        predict = load_predictor(CKPT, d)[0]
+        steps[side] = int(predict(next(iter(GraphLoader(
+            test, batch_size=len(test), device=d))))[1])
+    ok = True
+    for family, run in EVAL_RUNS:
+        gpu, cpu = tables["gpu"][run], tables["cpu"][run]
+        keys = ["mse_mean"] if family == "psignn" else sorted(cpu)
+        rtol = OPS_PSIGNN_MSE_RTOL if family == "psignn" else OPS_TABLE_RTOL
+        gaps = {k: abs(gpu[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+                for k in keys}
+        rec = dict(run=run, n_test=len(test), rtol=rtol, rel_gaps=gaps,
+                   mse_gpu=gpu["mse_mean"], mse_cpu=cpu["mse_mean"],
+                   res_gpu=gpu["res_mean"], res_cpu=cpu["res_mean"])
+        if family == "psignn":
+            rec.update(nstep_gpu=steps["gpu"], nstep_cpu=steps["cpu"])
+        emit("operations_table", **rec)
+        ok &= max(gaps.values()) <= rtol and finite(*gpu.values())
+    emit("operations_tables", seconds_gpu=tables["gpu"]["seconds"],
+         seconds_cpu=tables["cpu"]["seconds"])
+    if not ok:
+        raise RuntimeError("eval_trained.sh's card and CPU tables disagree")
+    return tables
+
+
+def notebook_cells(name: str, draw: bool = True) -> list:
+    """The code cells of ``notebooks/<name>.ipynb``, as source strings;
+    without ``draw``, those tagged ``DRAW_TAG`` left out."""
+    with open(os.path.join("notebooks", name + ".ipynb")) as f:
+        nb = json.load(f)
+    return ["".join(c["source"]) for c in nb["cells"]
+            if c["cell_type"] == "code" and (draw or DRAW_TAG not in
+                                             c["metadata"].get("tags", []))]
+
+
+def run_cells(cells: list, name: str, **constants) -> dict:
+    """Run ``cells`` in order in a namespace of their own, ``constants``
+    replacing the first cell's; returns the namespace."""
+    ns = {"__name__": "__notebook__"}
+    for i, c in enumerate(cells):
+        exec(compile(c, f"{name}[{i}]", "exec"), ns)
+        if i == 0:
+            ns.update(constants)
+    return ns
+
+
+def ops_notebooks(device) -> dict:
+    """The untagged code cells of ``NOTEBOOKS`` in order (their first cell
+    names ``DEVICE = "cuda"``; a rehearsal on the CPU puts ``device`` in
+    its place): their seconds and launches.  Returns the launches."""
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    launches = {}
+    for name in NOTEBOOKS:
+        cells = notebook_cells(name, draw=False)
+        own = run_cells(cells[:1], name)["DEVICE"]
+        sync(device)
+        mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        printed = captured(lambda: run_cells(cells, name,
+                                             DEVICE=str(device)))
+        sync(device)
+        rec = dict(notebook=name, cells=len(cells),
+                   seconds=time.perf_counter() - t0, device=own,
+                   fwd_launches=mp.LAUNCHES, bwd_launches=mp.BWD_LAUNCHES,
+                   printed_lines=len(printed.splitlines()),
+                   tail=printed.splitlines()[-3:])
+        emit("operations_notebook", **rec)
+        if own != "cuda" or mp.LAUNCHES == 0:
+            raise RuntimeError(f"notebook {name} failed: {rec}")
+        launches["notebook_" + name] = (mp.LAUNCHES, mp.BWD_LAUNCHES)
+    return launches
+
+
+def phase_operations(device) -> dict:
+    """The run operations of ``scripts/torch`` and the notebooks on the
+    card: (a) ``generate_datasets.sh`` at ``OPS_DATA``; (b) one epoch of
+    each training protocol; (c) a killed run relaunched from its
+    ``relaunch.cmd``; (d) ``eval_trained.sh``'s tables, card against
+    CPU; (e) the notebooks' compute cells.  Returns the (forward,
+    backward) launches of each protocol epoch and notebook."""
+    t_phase = time.perf_counter()
+    root = os.path.abspath(os.path.join(".chipwork", "smoke_operations"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    seconds = {}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        ["bash", os.path.abspath(os.path.join(SCRIPTS,
+                                              "generate_datasets.sh"))],
+        cwd=root, env=_script_env(**OPS_DATA), capture_output=True,
+        text=True, timeout=OPS_TIMEOUT)
+    seconds["data"] = time.perf_counter() - t0
+    data = {v: os.path.join(root, "data", v) for v in ("dirichlet", "mixed")}
+    if proc.returncode or not all(
+            os.path.exists(os.path.join(p, "A_sparse_matrix.npy"))
+            for p in data.values()):
+        raise RuntimeError(f"generate_datasets.sh: {proc.stderr[-2000:]}")
+    emit("operations_data", seconds=seconds["data"], **OPS_DATA,
+         a_prime=os.path.exists(os.path.join(data["dirichlet"],
+                                             "A_prime.npy")))
+    t0 = time.perf_counter()
+    launches = ops_protocols(data, root, device)
+    seconds["protocols"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops_kill_relaunch(data, root, device)
+    seconds["kill_relaunch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops_tables(data, root, device)
+    seconds["tables"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(ops_notebooks(device))
+    seconds["notebooks"] = time.perf_counter() - t0
+    emit("operations", phase_s=time.perf_counter() - t_phase, **seconds)
+    return launches
+
+
 def device_breakdown(run, top: int = 8, ranges=()) -> dict:
     """One more run of ``run`` under ``torch.profiler``: the device's kernel
     time in all and by kernel name, and the busy share of the unprofiled
@@ -3080,6 +3499,7 @@ def main() -> None:
     parity = timed("parity", phase_parity, device, smi)
     nstep = timed("nstep_study", phase_nstep_study, device)
     figures = timed("figures", phase_figures, device, smi)
+    operations = timed("operations", phase_operations, device)
     emit("seconds", **seconds)
     # each path's launches, counted from 0 just before it ran
     fwd["launches_by_path"] = dict(
@@ -3087,11 +3507,13 @@ def main() -> None:
         lowrank=lowrank, zoo=zoo, iterative=iterative, several_init=several,
         **{path: n[0] for path, n in dist.items()},
         **{"trainer_" + run: n[0] for run, n in trainer.items()},
-        **parity, nstep_study=nstep, **figures)
+        **parity, nstep_study=nstep, **figures,
+        **{path: n[0] for path, n in operations.items()})
     bwd["launches_by_path"] = dict(
         train_step=bwd["launches"], stacked_train_step=stacked[1],
         **{path: n[1] for path, n in dist.items() if n[1]},
         **{"trainer_" + run: n[1] for run, n in trainer.items()},
+        **{path: n[1] for path, n in operations.items() if n[1]},
         **{path: n[1] for path, n in newton.items() if n[1]})
     fwd["launches_by_path"].update(
         {path: n[0] for path, n in newton.items()})

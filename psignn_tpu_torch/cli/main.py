@@ -24,10 +24,20 @@ as in JAX); the TPU-only ``--rcm``, ``--pallas`` and ``--cache_batches``
 are not flags here.  ``--device`` picks the torch device (default: cuda).  The
 mixed variant's split is shuffled by ``--seed``.
 
-A run without ``--resume`` starts afresh: it deletes the ``ckpt/`` and
-``logs/`` an earlier run left in ``--path_results`` (default
-``results/psignn_torch_run/``), and refuses a directory that holds anything
-else, so that it never deletes files it did not write.
+A run without ``--resume`` starts afresh: it deletes the ``ckpt/``,
+``logs/``, ``trainer.pid`` and ``relaunch.cmd`` an earlier run left in
+``--path_results`` (default ``results/psignn_torch_run/``), and refuses a
+directory that holds anything else, so that it never deletes files it did
+not write.
+
+As the JAX CLI does, the run keeps two files in ``--path_results`` for the
+run-operation scripts of ``scripts/torch/``: ``trainer.pid``, the PID of
+the process the user started (with ``--num_devices`` the launcher of the
+rank processes, which are its children), removed when the command returns
+or raises; and ``relaunch.cmd``, the command again, shell-quoted, with
+``--resume <path_results>/ckpt/running_model.ckpt`` in place of any
+earlier ``--resume``.  A launch by torchrun (``WORLD_SIZE`` set) writes
+neither: its launcher is torchrun.
 """
 
 from __future__ import annotations
@@ -35,8 +45,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import shlex
 import shutil
-from typing import Optional
+import sys
+from typing import List, Optional
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -213,7 +225,9 @@ def build_model_cfg(args):
                      gamma=args.gamma)
 
 
-RUN_OUTPUTS = ("ckpt", "logs")
+PID_FILE = "trainer.pid"
+RELAUNCH_FILE = "relaunch.cmd"
+RUN_OUTPUTS = ("ckpt", "logs", PID_FILE, RELAUNCH_FILE)
 
 
 def foreign_results(p: argparse.ArgumentParser, path: str) -> None:
@@ -231,39 +245,96 @@ def clear_results(p: argparse.ArgumentParser, path: str) -> None:
     """Delete an earlier run's outputs in ``path``; ``p.error`` if ``path``
     holds anything the trainer does not write."""
     foreign_results(p, path)
-    for sub in RUN_OUTPUTS:
-        shutil.rmtree(os.path.join(path, sub), ignore_errors=True)
+    for name in RUN_OUTPUTS:
+        out = os.path.join(path, name)
+        if os.path.isdir(out):
+            shutil.rmtree(out)
+        elif os.path.lexists(out):
+            os.remove(out)
+
+
+def relaunch_argv(argv: List[str], path_results: str) -> List[str]:
+    """The command that resumes this run: the port's CLI with ``argv``,
+    any ``--resume X`` (or ``--resume=X``) dropped and ``--resume
+    <path_results>/ckpt/running_model.ckpt`` appended."""
+    kept, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--resume":
+            skip = True
+        elif not a.startswith("--resume="):
+            kept.append(a)
+    return [sys.executable, "-m", "psignn_tpu_torch.cli.main", *kept,
+            "--resume", os.path.join(path_results, "ckpt",
+                                     "running_model.ckpt")]
+
+
+def write_run_files(argv: List[str], path_results: str) -> str:
+    """Write ``trainer.pid`` (this process) and ``relaunch.cmd`` into
+    ``path_results``; returns the pid file's path."""
+    with open(os.path.join(path_results, RELAUNCH_FILE), "w") as f:
+        # shell-quoted: the watchdog runs it through ``bash -c``
+        f.write(shlex.join(relaunch_argv(argv, path_results)))
+    pid_file = os.path.join(path_results, PID_FILE)
+    with open(pid_file, "w") as f:
+        f.write(str(os.getpid()))
+    return pid_file
 
 
 def main(argv=None) -> None:
     """Train as the flags say."""
     p = get_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = p.parse_args(argv)
     refuse_unported(p, args)
     plan = rank_plan(p, args)
-    if plan.n > 1 and not plan.joined:
-        from ..dist import multihost
-        if not args.resume:
-            foreign_results(p, args.path_results)
-        if plan.device and plan.device.startswith("cuda:"):
-            print(f"--device {plan.device}: {plan.n} ranks share one card "
-                  "over gloo, their collectives staged through the host",
-                  flush=True)
-        if plan.device != "cpu":
-            # build the kernels once, here, rather than on every rank
-            from ..kernels import build
-            for name in ("fused_mp_fwd", "fused_mp_bwd"):
-                build.build(name)
-        init = f"tcp://127.0.0.1:{multihost.free_port()}"
-        multihost.spawn(_rank_main, plan.n, (args, plan, init))
-        print("Training finished")
-        return
-    rank = int(os.environ.get("RANK", "0")) if plan.joined else 0
     if plan.joined:
+        rank = int(os.environ.get("RANK", "0"))
         _join(plan, rank, None)
-    _train(p, args, plan, rank)
-    if rank == 0:
-        print("Training finished")
+        _train(p, args, plan, rank, clear=rank == 0 and not args.resume)
+        if rank == 0:
+            print("Training finished")
+        return
+    if not args.resume:
+        clear_results(p, args.path_results)
+    os.makedirs(args.path_results, exist_ok=True)
+    pid_file = write_run_files(argv, args.path_results)
+    try:
+        _launch(args, plan)
+    finally:
+        remove_pid_file(pid_file)
+    print("Training finished")
+
+
+def remove_pid_file(pid_file: str) -> None:
+    """Remove ``pid_file`` if it still names this process (a relaunch may
+    have written its own since)."""
+    try:
+        with open(pid_file) as f:
+            if f.read().strip() == str(os.getpid()):
+                os.remove(pid_file)
+    except FileNotFoundError:
+        pass
+
+
+def _launch(args, plan: RankPlan) -> None:
+    """Train in this process, or spawn the ranks of ``--num_devices``."""
+    if plan.n == 1:
+        _train(None, args, plan, 0)
+        return
+    from ..dist import multihost
+    if plan.device and plan.device.startswith("cuda:"):
+        print(f"--device {plan.device}: {plan.n} ranks share one card "
+              "over gloo, their collectives staged through the host",
+              flush=True)
+    if plan.device != "cpu":
+        # build the kernels once, here, rather than on every rank
+        from ..kernels import build
+        for name in ("fused_mp_fwd", "fused_mp_bwd"):
+            build.build(name)
+    init = f"tcp://127.0.0.1:{multihost.free_port()}"
+    multihost.spawn(_rank_main, plan.n, (args, plan, init))
 
 
 def _join(plan: RankPlan, rank: int, init_method: Optional[str]) -> None:
@@ -280,7 +351,7 @@ def _join(plan: RankPlan, rank: int, init_method: Optional[str]) -> None:
 def _rank_main(rank: int, args, plan: RankPlan, init_method: str) -> None:
     """One spawned rank of ``--num_devices``."""
     _join(plan, rank, init_method)
-    _train(get_parser(), args, plan, rank)
+    _train(None, args, plan, rank)
 
 
 def build_loaders(args, device, n_devices: int = 1, rank: int = 0):
@@ -302,13 +373,15 @@ def build_loaders(args, device, n_devices: int = 1, rank: int = 0):
                         stacked=stacked, **shard))
 
 
-def _train(p: argparse.ArgumentParser, args, plan: RankPlan,
-           rank: int) -> None:
+def _train(p: Optional[argparse.ArgumentParser], args, plan: RankPlan,
+           rank: int, clear: bool = False) -> None:
+    """Train rank ``rank`` of the run; ``clear``: clear ``--path_results``
+    first (rank 0 of a torchrun launch, whose launcher cannot)."""
     from ..train import Trainer, TrainConfig
 
-    if rank == 0:           # only rank 0 clears and writes
-        if not args.resume:
-            clear_results(p, args.path_results)
+    if clear:
+        clear_results(p, args.path_results)
+    if rank == 0:           # only rank 0 writes
         os.makedirs(args.path_results, exist_ok=True)
     device = plan.rank_device(rank)
     loader_train, loader_val = build_loaders(args, device, plan.n, rank)

@@ -111,7 +111,7 @@ def add_dss_variable(path_data: str) -> None:
         f.write("Std of b_prime : %s\n" % list(np.around(bp.std(0), 4)))
 
 
-def main(argv=None):
+def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="psignn_tpu_torch dataset factory")
     p.add_argument("--path_data", type=str, default="data/")
     p.add_argument("--n_mesh", type=int, default=200)
@@ -121,7 +121,11 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--variant", type=str, default="dirichlet",
                    choices=["dirichlet", "mixed"])
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
     generate_data(args.path_data, args.n_mesh, args.n_samples, args.radius,
                   args.hsize, seed=args.seed, variant=args.variant)
     if args.variant == "dirichlet":

@@ -162,13 +162,67 @@ def _against_one_process(inf, model, sample: dict, cfg, pg, rank: int,
                                         and u_ok and res_rel <= 1e-3))
 
 
-def _rank(rank: int, n: int, device: str, init: str) -> Dict[str, float]:
+def join(rank: int, n: int, device: str, init: str) -> str:
+    """Join rank ``rank`` of an ``n``-rank world at ``init``; its device:
+    ``cuda`` puts rank r on ``cuda:r`` over NCCL, ``cuda:K`` every rank on
+    card K over gloo, ``cpu`` every rank on the CPU over gloo."""
     backend = "nccl" if device == "cuda" else "gloo"
     dev = f"cuda:{rank}" if device == "cuda" else device
     if dev.startswith("cuda"):
         torch.cuda.set_device(torch.device(dev))
     multihost.initialize(backend, init, n, rank)
-    return dryrun_multichip(dev)
+    return dev
+
+
+def _rank(rank: int, n: int, device: str, init: str) -> Dict[str, float]:
+    return dryrun_multichip(join(rank, n, device, init))
+
+
+# ------------------------------------- jobs of notebooks/partitioned_torch
+
+
+def partitioned_request(rank: int, n: int, device: str, init: str,
+                        sample: dict, ckpt: str, overrides: dict) -> dict:
+    """One rank of a request of the Ψ-GNN checkpoint ``ckpt`` (its
+    hyperparameters replaced by ``overrides``) on the RCM-ordered
+    ``sample`` split over ``n`` ranks (``multihost.spawn`` it with ``(n,
+    device, init, sample, ckpt, overrides)``): the rank's rows of u, the
+    solve's steps and residual, and the one process's request of the same
+    mesh held against it as the dry run holds it."""
+    from ..weights import load_psignn_checkpoint
+    from . import partitioned_psignn_inference, stack_partitioned_graphs
+    dev = join(rank, n, device, init)
+    model, cfg = load_psignn_checkpoint(ckpt, dev, overrides)
+    row = multihost.global_mesh(1, n, dev)
+    pg = stack_partitioned_graphs([sample], row)
+    inf = partitioned_psignn_inference(model, pg, cfg, row)
+    return dict(_against_one_process(inf, model, sample, cfg, pg, rank, dev),
+                u=inf.u.cpu().numpy(), nstep=inf.nstep,
+                residual=inf.residual, n_loc=pg.n_loc, halo=pg.halo)
+
+
+def partitioned_train(rank: int, n: int, device: str, init: str,
+                      samples: list, ckpt: str, overrides: dict, steps: int,
+                      lrs: tuple = (0.01, 0.05)) -> list:
+    """One rank of ``steps`` dp × partition train steps of the Ψ-GNN
+    checkpoint ``ckpt``: the RCM-ordered ``samples`` of one mesh, one a dp
+    row, each split over ``n // len(samples)`` ranks.  Each step's (loss,
+    grad norm, forward steps)."""
+    from ..train import make_optimizers
+    from ..weights import load_psignn_checkpoint
+    from . import make_partitioned_train_step, stack_partitioned_graphs
+    dev = join(rank, n, device, init)
+    model, cfg = load_psignn_checkpoint(ckpt, dev, overrides)
+    grid = multihost.global_mesh(len(samples), n // len(samples), dev)
+    step = make_partitioned_train_step(cfg, grid, clip=0.1)
+    opts = make_optimizers(model, *lrs)
+    pg = stack_partitioned_graphs(samples, grid)
+    gen = torch.Generator().manual_seed(1 + grid.rank)
+    out = []
+    for _ in range(steps):
+        res = step(model, opts, pg, gen, *lrs)
+        out.append((res.loss, res.grad_norm, res.fw.nstep))
+    return out
 
 
 def main(argv=None) -> None:

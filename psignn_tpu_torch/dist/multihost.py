@@ -254,12 +254,9 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn: Callable, rank_: int, nprocs: int, tasks,
+def _rank_main(fn: Callable, rank_: int, nprocs: int, threads: int, tasks,
                results) -> None:
-    # the host's cores shared out: every rank at the default thread count
-    # would oversubscribe them (two ranks' CPU steps on an 8-core host ran
-    # 80 times slower so)
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // nprocs))
+    torch.set_num_threads(threads)
     try:
         out = fn(rank_, *tasks.get())
     except BaseException:
@@ -278,15 +275,20 @@ def spawn(fn: Callable, nprocs: int, args: tuple = (),
 
     ``fn`` must be importable by name (module level) and its result
     picklable; it initialises its own process group.  Each rank gets
-    ``cpu_count // nprocs`` threads (``fn`` may set others).  When a rank
-    raises or dies, or ``timeout`` seconds pass, every other rank is
-    terminated and a ``RuntimeError`` carries the failing rank's traceback
-    — a rank waiting in a collective for a peer that is gone would
-    otherwise wait for ever."""
+    ``cpu_count // nprocs`` threads, at most as many as this process has
+    (``fn`` may set others).  When a rank raises or dies, or ``timeout``
+    seconds pass, every other rank is terminated and a ``RuntimeError``
+    carries the failing rank's traceback — a rank waiting in a collective
+    for a peer that is gone would otherwise wait for ever."""
     ctx = multiprocessing.get_context("spawn")
     tasks, results = ctx.Queue(), ctx.Queue()
+    # the host's cores shared out: every rank at the default thread count
+    # would oversubscribe them (two ranks' CPU steps on an 8-core host ran
+    # 80 times slower so); and no rank takes more threads than its launcher
+    threads = max(1, min((os.cpu_count() or 1) // nprocs,
+                         torch.get_num_threads()))
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, nprocs, tasks, results))
+                         args=(fn, r, nprocs, threads, tasks, results))
              for r in range(nprocs)]
     for p in procs:
         p.start()

@@ -53,7 +53,7 @@ def load_predictor(ckpt_path: str, device=None, overrides=None):
     return predict, family, cfg, model
 
 
-def main(argv=None):
+def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="psignn_tpu_torch checkpoint eval")
     p.add_argument("--ckpt", type=str, required=True)
     p.add_argument("--path_dataset", type=str, default=None,
@@ -73,6 +73,11 @@ def main(argv=None):
     p.add_argument("--n_meshes", type=int, default=3)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
+    return p
+
+
+def main(argv=None):
+    p = get_parser()
     args = p.parse_args(argv)
     if args.path_dataset is None and not (args.sweep or args.zoo):
         p.error("give --path_dataset for the test-split table, --sweep "

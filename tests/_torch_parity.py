@@ -5,12 +5,27 @@ JAX stays on the CPU (tests/conftest.py), torch runs with device="cpu".
 """
 
 import numpy as np
+import pytest
 
 CKPT = "results/psignn_dirichlet/ckpt/best_model.ckpt"
 MIXED_CKPT = "results/psignn_mixed/ckpt/best_model.ckpt"
 DSS_CKPT = "results/dss_dirichlet/ckpt/best_model.ckpt"
 DSGPS_CKPT = "results/dsgps_dirichlet/ckpt/best_model.ckpt"
 DSGPS_MIXED_CKPT = "results/dsgps_mixed/ckpt/best_model.ckpt"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """A test module that imports this fixture runs its small solves and
+    steps on one torch thread: beside the suite's other workers, torch's
+    intra-op threads made them 4–17× slower, where one thread costs them
+    nothing alone.  Ranks that the module spawns through
+    ``multihost.spawn`` take no more threads than this process."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def fem_sample(seed: int, radius: float = 1.0, hsize: float = 0.2):

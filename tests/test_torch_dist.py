@@ -32,6 +32,7 @@ from jax.sharding import PartitionSpec as P
 import _torch_dist
 from _torch_parity import (dss_sample, fem_sample, grad_rel,
                            jax_dsgps_params, jax_dss_params, load_trained)
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu import deq as jdeq
 from psignn_tpu import solvers as jsolvers
 from psignn_tpu.data.reader import GraphLoader as JaxGraphLoader

@@ -21,6 +21,7 @@ import chip_smoke
 from _torch_parity import (DSGPS_CKPT, DSGPS_MIXED_CKPT, DSS_CKPT,
                            fem_sample, grad_rel, jax_dsgps_params,
                            kernel_route, load_trained, mixed_sample)
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.graphs import batch_graphs as jax_batch_graphs
 from psignn_tpu.models import DsgpsConfig as JaxDsgpsConfig
 from psignn_tpu.models import dsgps_forward as jax_dsgps_forward

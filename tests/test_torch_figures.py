@@ -41,6 +41,7 @@ import chip_smoke
 from _torch_parity import (CKPT, DSGPS_CKPT, DSGPS_MIXED_CKPT, dss_sample,
                            fem_sample, jax_dsgps_params, jax_dss_params,
                            kernel_route, load_trained, mixed_sample)
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.data.generate import generate_data as jax_generate_data
 from psignn_tpu.graphs import batch_graphs as jax_batch_graphs
 from psignn_tpu.models import DsgpsConfig as JaxDsgpsConfig
@@ -83,17 +84,6 @@ CONVERGED_TOL = 1e-7
 MSE_RTOL = 1e-3
 DSGPS_UTOL = 1e-4
 GRAD_RTOL = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """These small solves and steps run on one torch thread: beside the
-    suite's other workers, torch's intra-op threads made them 4–17×
-    slower, where one thread costs them nothing alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

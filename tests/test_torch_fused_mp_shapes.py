@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from _torch_parity import jax_mlp_params
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.kernels import fused_message_passing as pallas_mp
 from psignn_tpu.kernels import pack_mp_blocks
 from psignn_tpu.kernels.fused_mp import _fused_mp_bwd_kernel, mp_from_blocks

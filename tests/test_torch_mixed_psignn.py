@@ -16,6 +16,7 @@ import torch
 
 import chip_smoke
 from _torch_parity import MIXED_CKPT, kernel_route, load_trained, mixed_sample
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu import deq as jdeq
 from psignn_tpu.data.reader import GraphLoader as JaxGraphLoader
 from psignn_tpu.data.reader import load_dataset as jax_load_dataset

@@ -18,6 +18,7 @@ import torch
 from jax.scipy.sparse.linalg import gmres as jax_gmres
 
 from _torch_parity import fem_sample, grad_rel, load_trained
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu import deq as jdeq
 from psignn_tpu import solvers as jsolvers
 from psignn_tpu.graphs import batch_graphs as jax_batch_graphs

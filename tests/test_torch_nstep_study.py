@@ -40,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.data import meshgen as jax_meshgen
 from psignn_tpu.eval import nstep_study as jax_nstep
 from psignn_tpu.eval import parity as jax_parity

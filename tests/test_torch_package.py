@@ -27,11 +27,17 @@ DRAWING_MODULES = ("eval/vis.py", "train/plots.py", "eval/curves.py",
                    "eval/figures.py")
 
 
+SCRIPTS = ROOT / "scripts" / "torch"
+NOTEBOOKS = sorted((ROOT / "notebooks").glob("*_torch.ipynb"))
+
+
 def _port_sources():
-    """The port's modules, the smoke script and the rank workers of the
-    multi-rank tests (which spawned ranks import)."""
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "_torch_dist.py"]
+    """The port's modules, the smoke script, the rank workers of the
+    multi-rank tests (which spawned ranks import) and the port's Python
+    scripts."""
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist.py",
+        *sorted(SCRIPTS.glob("*.py"))]
 
 
 def _imported_roots(path: Path):
@@ -71,6 +77,37 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
     late = sorted(set(_import_time_roots(path)) & set(FUNCTION_ONLY))
     assert not late, f"{path.relative_to(ROOT)} imports {late} on import"
+
+
+@pytest.mark.parametrize("path", NOTEBOOKS, ids=lambda p: p.name)
+def test_notebook_cells_import_no_jax(path):
+    """The code cells of the port's notebooks import neither JAX nor the
+    JAX package."""
+    cells = ["".join(c["source"]) for c in json.loads(path.read_text())
+             ["cells"] if c["cell_type"] == "code"]
+    assert cells
+    for i, src in enumerate(cells):
+        cell = path.parent / f"{path.name}[{i}]"
+        cell_roots = set()
+        for node in ast.walk(ast.parse(src, str(cell))):
+            if isinstance(node, ast.Import):
+                cell_roots |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                cell_roots.add(node.module.split(".")[0])
+        assert not cell_roots & set(FORBIDDEN), (cell, src)
+
+
+@pytest.mark.parametrize("path", sorted(SCRIPTS.glob("*.sh")),
+                         ids=lambda p: p.name)
+def test_scripts_run_only_the_port(path):
+    """A shell script of the port runs the port's modules and its own
+    scripts: no ``psignn_tpu.`` module, nothing of ``tools/``, no
+    ``bench.py``."""
+    code = "\n".join(ln for ln in path.read_text().splitlines()
+                     if not ln.lstrip().startswith("#"))
+    assert "psignn_tpu_torch." in code or "scripts/torch/" in code
+    for bad in ("psignn_tpu.", "tools/", "bench.py"):
+        assert bad not in code, (path.name, bad)
 
 
 def test_package_import_leaves_jax_out():
@@ -116,6 +153,10 @@ def test_scan_covers_every_module():
             "eval/curves.py", "eval/registry.py", "eval/vis.py",
             "train/plots.py", "eval/figures.py"} <= scanned
     assert ROOT / "tests" / "_torch_dist.py" in _port_sources()
+    assert SCRIPTS / "make_warmae_ckpt.py" in _port_sources()
+    assert [p.name for p in NOTEBOOKS] == [
+        "comparatives_torch.ipynb", "demo_torch.ipynb",
+        "partitioned_torch.ipynb"]
     meshgen = PORT / "data" / "meshgen.py"
     assert "h5py" in set(_imported_roots(meshgen))
     assert "h5py" not in set(_import_time_roots(meshgen))

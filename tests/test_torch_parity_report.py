@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.eval import nstep_study as jax_nstep
 from psignn_tpu.eval import parity as jax_parity
 from psignn_tpu.eval import registry as jax_registry

@@ -24,6 +24,7 @@ from jax.sharding import Mesh as JaxMesh
 
 import _torch_dist
 from _torch_parity import MIXED_CKPT, load_trained
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.dist import make_mesh as jax_make_mesh
 from psignn_tpu.dist.partitioned import (
     build_partitioned_graph as jax_build_partitioned_graph,

@@ -11,6 +11,7 @@ import time
 
 import pytest
 
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.data.reader import prefetch as jax_prefetch
 from psignn_tpu_torch.data.generate import generate_data
 from psignn_tpu_torch.data.reader import (GraphLoader, load_dataset, prefetch,

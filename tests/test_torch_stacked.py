@@ -23,6 +23,7 @@ import torch
 
 import chip_smoke
 from _torch_parity import fem_sample, grad_rel, kernel_route, load_trained
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu import deq as jdeq
 from psignn_tpu.data.reader import GraphLoader as JaxGraphLoader
 from psignn_tpu.models import PsignnConfig as JaxPsignnConfig

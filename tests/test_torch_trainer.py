@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.models import PsignnConfig as JaxPsignnConfig
 from psignn_tpu.models import psignn_init
 from psignn_tpu.train.trainer import count_params

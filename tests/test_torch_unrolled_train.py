@@ -20,6 +20,7 @@ import chip_smoke
 from _torch_parity import (DSS_CKPT, dss_sample, fem_sample,
                            jax_dsgps_params, jax_dss_params, kernel_route,
                            mixed_sample)
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.data import reader as jreader
 from psignn_tpu.eval.metrics import evaluate_dataset as jax_evaluate_dataset
 from psignn_tpu.eval.run_eval import load_predictor as jax_load_predictor

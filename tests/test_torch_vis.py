@@ -15,6 +15,7 @@ import pytest
 from matplotlib.image import imread
 from PIL import Image, ImageSequence
 
+from _torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from psignn_tpu.eval import vis as jax_vis
 from psignn_tpu.train import plots as jax_plots
 from psignn_tpu_torch.data.fem import solve_poisson, solve_poisson_mixed
