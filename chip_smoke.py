@@ -32,26 +32,35 @@ Phases, each printing one JSON line:
 6. headline   — 531 Broyden iterations (fw_tol 0) on the radius-5 mesh with
                 seeded random weights: wall seconds, edge-messages/s and the
                 kernel launches of each timed run (two per f_θ call).
-7. train_step — the implicit-gradient train step of ``bench.py:110-200``
+7. bench      — the port's benchmark as a benchmark runs it: one process
+                of ``python -m psignn_tpu_torch.bench`` per mode —
+                inference, train, partition on 1 NCCL rank, then on 2 gloo
+                ranks sharing the card — each of whose one stdout line
+                must carry bench.py's keys, finite positive value, device
+                time and busy share, 531 iterations over 76,353 edges and
+                2 · 532 forward launches a rank (inference, partition), and
+                launches equal to ``expected_launches`` with one fw_nstep
+                across the reps (train).
+8. train_step — the implicit-gradient train step of ``bench.py:110-200``
                 through ``train.train_step``: 50 seeded radius-1 meshes in
                 one batch, the trained weights, a warm-up and three timed
                 steps from one starting state with their kernel launches,
                 one profiled step, and a 2-mesh step on the GPU against the
                 same step on the CPU.
-8. mixed_eval — mixed Dirichlet+Neumann inference as a user runs it: a
+9. mixed_eval — mixed Dirichlet+Neumann inference as a user runs it: a
                 fresh seeded mixed dataset from ``data.generate``, its test
                 split answered with the trained ``results/psignn_mixed``
                 checkpoint through ``run_eval``'s ``load_predictor`` →
                 ``split_dataset`` → ``GraphLoader`` → ``evaluate_dataset``
                 (three launches per f_θ call); then the same batch on the
                 CPU.
-9. mixed_train_step — the train step of phase 7 on 50 seeded mixed
+10. mixed_train_step — the train step of phase 8 on 50 seeded mixed
                 meshes with the mixed weights, and its 2-mesh GPU-vs-CPU
                 step.
-10. solvers   — the radius-1 sweep mesh solved with the trained Dirichlet
+11. solvers   — the radius-1 sweep mesh solved with the trained Dirichlet
                 weights by ``forward_iteration``, ``anderson`` and
                 Broyden with its line search, each against the CPU.
-11. newton    — Newton and Newton-Krylov: the JVP kernel against its
+12. newton    — Newton and Newton-Krylov: the JVP kernel against its
                 plain version at every Ψ-GNN-width case of phase 3 (timed
                 at the headline mesh and the 50-mesh batch, both
                 directions); Newton-Krylov requests of the trained
@@ -66,39 +75,39 @@ Phases, each printing one JSON line:
                 its final checkpoint; a reference
                 ``state_dict`` through ``compat`` against the
                 ``weights.py`` route.
-12. families  — a sweep request of each model family as a user runs it:
+13. families  — a sweep request of each model family as a user runs it:
                 the trained Ψ-GNN, DS-GPS and DSS Dirichlet checkpoints
                 through ``load_predictor`` and ``growing_geometry_sweep``
                 on one mesh at each of radii 1, 2 and 5 (DS-GPS and DSS
                 launch the kernel exactly 2k times a request); then the
                 radius-1 request of DS-GPS and DSS on the CPU.
-13. dsgps_mixed_eval — phase 8's mixed test batch answered by the trained
+14. dsgps_mixed_eval — phase 9's mixed test batch answered by the trained
                 ``results/dsgps_mixed`` checkpoint (3k launches), then on
                 the CPU.
-14. unrolled_train_step — ``train.unrolled_train_step`` of DSS (the
+15. unrolled_train_step — ``train.unrolled_train_step`` of DSS (the
                 50-mesh batch's A′ form), DS-GPS (the 50-mesh batch) and
                 mixed DS-GPS (the mixed 50-mesh batch) from their trained
                 weights: a warm-up that also creates Adam's state, three
                 timed steps from the same parameters with 2k (mixed 3k)
                 forward and backward launches each, one profiled step,
                 and a 2-mesh step on the GPU against the CPU.
-15. stacked_train_step — phase 7's step with one DEQ solve per mesh
+16. stacked_train_step — phase 8's step with one DEQ solve per mesh
                 (``--stacked_batch``): each mesh's forward steps, launches,
                 seconds, busy share; then its 2-mesh GPU-vs-CPU step.
-16. lowrank   — phase 6's loop with Broyden's rank memory capped at 640
+17. lowrank   — phase 6's loop with Broyden's rank memory capped at 640
                 (never wraps: bit-identical to full memory) and 128 (wraps
                 from step 129), each with f32 and bfloat16 pairs: wall;
                 device time and the rank products' share of the cap-128
                 runs; then an 8-pair ring on the radius-1 mesh on the GPU
                 against the CPU.
-17. zoo       — the 12 out-of-distribution shapes through ``run_eval
+18. zoo       — the 12 out-of-distribution shapes through ``run_eval
                 --zoo``'s path with the trained Dirichlet checkpoint; then
                 one shape on the CPU.
-18. iterative — ``psignn_iterative_inference`` on the radius-1 sweep mesh,
+19. iterative — ``psignn_iterative_inference`` on the radius-1 sweep mesh,
                 then against the CPU.
-19. several_init — ``test_several_init`` (four starting points) on the
+20. several_init — ``test_several_init`` (four starting points) on the
                 radius-1 sweep mesh's sample, on the card and the CPU.
-20. dist      — the multi-rank paths, each rank one spawned process on
+21. dist      — the multi-rank paths, each rank one spawned process on
                 the card (one H100: several ranks share it over gloo,
                 staging through the host; NCCL is checked on one rank):
                 ``dist_partitioned`` (the trained Dirichlet Ψ-GNN's Picard
@@ -113,7 +122,7 @@ Phases, each printing one JSON line:
                 parts 2 on two RCM-ordered radius-1 meshes, the card
                 against the CPU); a ``dist_world`` line says where each
                 world's seconds went.
-21. trainer   — training as a user runs it: a fresh Dirichlet dataset
+22. trainer   — training as a user runs it: a fresh Dirichlet dataset
                 (with DSS's encoding) and a fresh mixed one from
                 ``data.generate``, one epoch of ``cli.main`` for Ψ-GNN in
                 each variant, DSS, and DS-GPS in each variant, one more
@@ -132,7 +141,7 @@ Phases, each printing one JSON line:
                 parse_val``) to the values its trainer kept, and the Ψ-GNN
                 Dirichlet log is compared with the JAX trainer's
                 (``curves.compare``).
-22. parity    — the growing-geometry parity table as ``eval.parity``
+23. parity    — the growing-geometry parity table as ``eval.parity``
                 makes it: the trained Ψ-GNN, DS-GPS (k = 100) and DSS
                 (k = 30) Dirichlet checkpoints through
                 ``build_predictors(source="trained")`` at fw_tol 1e-5 /
@@ -141,14 +150,14 @@ Phases, each printing one JSON line:
                 per family and radius and each family's launches; the
                 reference checkpoints' skip line; then the first radius-0.6
                 mesh on the card and the CPU.
-23. nstep_study — ``eval.nstep_study.study`` with the trained Ψ-GNN (fw
+24. nstep_study — ``eval.nstep_study.study`` with the trained Ψ-GNN (fw
                 1e-5 / 600) on three radius-1 blob meshes and one circle
                 mesh, 8 right-hand sides each; the reference checkpoint's
                 skip line and the absent gmsh meshes; then the circle
                 mesh's 8 right-hand sides on the card and the CPU: step
                 counts printed, the first 4 iterates and the mean MSE
                 held.
-24. figures   — the paper figures' path, ``eval.figures`` (the JAX
+25. figures   — the paper figures' path, ``eval.figures`` (the JAX
                 package's ``tools/make_figures.py``): the iterate traces of
                 the trained Ψ-GNN (fw_thres 300) and of both DS-GPS
                 checkpoints (k = 30) on fresh factory samples, on the card
@@ -160,7 +169,7 @@ Phases, each printing one JSON line:
                 call must raise an ``ImportError`` naming it; with
                 matplotlib the figures are drawn from the card's traces and
                 their files checked.
-25. operations — the run operations of ``scripts/torch`` as a user runs
+26. operations — the run operations of ``scripts/torch`` as a user runs
                 them: ``generate_datasets.sh`` at 3 meshes × 30 samples;
                 one epoch of each of the six training protocols, its CLI
                 arguments parsed from its script (the DS-GPS Dirichlet one
@@ -199,6 +208,12 @@ import torch
 # the port itself: a copy of this script without the repo stops here,
 # before it prints anything
 import psignn_tpu_torch  # noqa: F401
+from psignn_tpu_torch import bench, profiling
+# the workloads bench.py defines, and its train step's knobs
+from psignn_tpu_torch.bench import (HEADLINE_ITERS, TRAIN_CLIP,
+                                    TRAIN_JAC_WEIGHT, TRAIN_LRS,
+                                    TRAIN_MESHES, TRAIN_OVERRIDES,
+                                    step_from, train_samples, trained_model)
 
 CKPT = "results/psignn_dirichlet/ckpt/best_model.ckpt"
 MIXED_CKPT = "results/psignn_mixed/ckpt/best_model.ckpt"
@@ -208,7 +223,6 @@ DSGPS_MIXED_CKPT = "results/dsgps_mixed/ckpt/best_model.ckpt"
 # the families phase: each family's Dirichlet checkpoint
 FAMILY_CKPTS = {"psignn": CKPT, "dsgps": DSGPS_CKPT, "dss": DSS_CKPT}
 SWEEP_RADII = (1.0, 2.0, 5.0)
-HEADLINE_ITERS = 531
 # The model's latent width, and a width above 16 for the kernels' 32-lane
 # layout.
 WIDTH = 10
@@ -234,13 +248,6 @@ REACHABLE_TOL = 1e-3
 NSTEP_SLACK = 2
 LOWEST_REL_TOL = 0.05
 RES_REL_TOL = 0.01
-# Train step (bench.py:147-173): 50 radius-1 meshes, the trained weights,
-# canonical solver knobs and optimizers.
-TRAIN_MESHES = 50
-TRAIN_OVERRIDES = dict(fw_tol=1e-5, fw_thres=500, bw_tol=1e-8, bw_thres=500)
-TRAIN_LRS = (0.01, 0.05)
-TRAIN_CLIP = 0.1
-TRAIN_JAC_WEIGHT = 1.0
 # GPU vs CPU step on 2 meshes.  Near its f32 floor Broyden is chaotic
 # under f32 summation order, so the two stop at other steps; and the
 # iteration contracts slowly, so (I - J)^-1 amplifies a solve's stopping
@@ -341,14 +348,6 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[0].strip()
-
-
 def cuda_ms(fn, reps: int = 200, warmup: int = 5) -> float:
     """Mean time of one ``fn()`` call on the current stream (CUDA events)."""
     for _ in range(warmup):
@@ -362,16 +361,6 @@ def cuda_ms(fn, reps: int = 200, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def device_events(prof) -> list:
-    """The device's kernels and copies in a ``torch.profiler`` trace.  A
-    ``record_function`` range (``Optimizer.step#Adam.step``) also shows on
-    the device's timeline, spanning its kernels and the gaps between them;
-    it is left out."""
-    from torch.autograd import DeviceType
-    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
-            and not getattr(ev, "is_user_annotation", False)]
 
 
 def kernel_device_ms(fn, reps: int = 50,
@@ -398,7 +387,8 @@ def kernel_device_ms(fn, reps: int = 50,
                     fn()
                 torch.cuda.synchronize()
                 prof.step()
-        spans = [ev.time_range.elapsed_us() for ev in device_events(prof)]
+        spans = [ev.time_range.elapsed_us()
+                 for ev in profiling.device_events(prof)]
         if len(spans) > len(best):
             best = spans
         if spans and len(spans) % reps == 0:
@@ -472,21 +462,10 @@ def fused_mp_jvp_bound(n: int, e: int, d: int, dh: int, d_out: int,
         float(nbytes), float(flops)
 
 
-def headline_graph(device):
-    from psignn_tpu_torch.data.fem import solve_poisson
-    from psignn_tpu_torch.data.meshgen import blob_mesh
-    from psignn_tpu_torch.data.reader import psignn_sample_from_fem
-    from psignn_tpu_torch.graphs import batch_graphs
-    rng = np.random.default_rng(0)
-    mesh = blob_mesh(radius=5.0, hsize=0.08, rng=rng)
-    sample = psignn_sample_from_fem(solve_poisson(mesh, 5.0, rng))
-    return batch_graphs([sample], device=device), sample
-
-
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
-    smi = nvidia_smi_line()
+    smi = bench.card_line("cuda")
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
@@ -718,17 +697,14 @@ def phase_slice(device) -> int:
 
 
 def phase_headline(graph, sample, device, smi: str) -> None:
-    from psignn_tpu_torch.deq import fixed_point_forward
+    """``graph`` is ``bench.build_big_graph``'s, solved as the bench's
+    inference mode solves it."""
     from psignn_tpu_torch.kernels import fused_mp as mp
-    from psignn_tpu_torch.models import Psignn, PsignnConfig
-    cfg = PsignnConfig(fw_tol=0.0, fw_thres=HEADLINE_ITERS)
-    model = Psignn(cfg, generator=torch.Generator().manual_seed(0),
-                   device=device).eval()
+    cfg = bench.headline_config()
+    model = bench.headline_model(cfg, device)
 
     def run():
-        with torch.no_grad():
-            h0 = model.encoder(graph.x) * graph.fnode_mask
-            out = fixed_point_forward(model.function, h0, graph, cfg.deq)
+        out = bench.headline_solve(model, graph, cfg)
         torch.cuda.synchronize()
         return out
 
@@ -760,6 +736,114 @@ def phase_headline(graph, sample, device, smi: str) -> None:
          peak_mem_bytes=torch.cuda.max_memory_allocated())
     emit("headline_profile", card=smi, unprofiled_wall_s=wall,
          **device_breakdown(run))
+
+
+# the bench phase: each run of ``python -m psignn_tpu_torch.bench``, its
+# path name in the kernels line, and the seconds it may take
+BENCH_RUNS = (
+    ("bench_inference", "psignn_fixed_point_edges_per_s",
+     ("--mode", "inference")),
+    ("bench_train", "psignn_train_step_seconds", ("--mode", "train")),
+    ("bench_partition_1", "psignn_partitioned_fixed_point_edges_per_s",
+     ("--mode", "partition", "--num_devices", "1")),
+    ("bench_partition_2", "psignn_partitioned_fixed_point_edges_per_s",
+     ("--mode", "partition", "--num_devices", "2", "--device", "cuda:0")))
+BENCH_TIMEOUT = 300
+# bench.py's detail keys of each metric (but ``pallas_mp``; the train
+# mode's with the checkpoint it read), and the port's own: launches,
+# device time, busy share, card
+BENCH_DETAIL = {
+    "psignn_fixed_point_edges_per_s": {
+        "n_nodes", "n_edges", "iters", "wall_s", "solver",
+        "baseline_edges_per_s"},
+    "psignn_train_step_seconds": {
+        "n_nodes", "n_edges", "fw_nstep", "loss", "epoch_s_extrapolated",
+        "baseline_step_s", "ckpt"},
+    "psignn_partitioned_fixed_point_edges_per_s": {
+        "n_nodes", "n_edges", "n_devices", "iters", "wall_s", "halo",
+        "n_loc", "residual"}}
+BENCH_PORT_KEYS = {"launches", "device_s", "busy", "card"}
+HEADLINE_EDGES = 76_353
+
+
+def bench_line(argv) -> tuple:
+    """(the JSON line, seconds, its stage lines on stderr) of one ``python
+    -m psignn_tpu_torch.bench`` process in this checkout; raises unless it
+    exits 0 with exactly one line on stdout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "psignn_tpu_torch.bench", *argv], cwd=root,
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"bench {argv} exited {proc.returncode} with "
+                           f"stdout {proc.stdout!r}:\n{proc.stderr[-4000:]}")
+    return json.loads(lines[0]), seconds, [
+        ln for ln in proc.stderr.splitlines() if ln.startswith("bench: ")]
+
+
+def bench_problems(name: str, metric: str, line: dict) -> list:
+    """What is wrong with one bench line: its metric and keys, its
+    numbers, its launches against the path it ran."""
+    from types import SimpleNamespace
+
+    from psignn_tpu_torch.deq import SolveStats
+    d = line["detail"]
+    bad = []
+    if line["metric"] != metric or "pallas_mp" in d \
+            or not BENCH_DETAIL[metric] | BENCH_PORT_KEYS <= set(d):
+        return [f"metric {line['metric']}, detail keys {sorted(d)}"]
+    values = [line["value"], line["vs_baseline"], d["device_s"], d["busy"]]
+    if not all(isinstance(v, (int, float)) and np.isfinite(v) and v > 0
+               for v in values):
+        bad.append(f"values {values}")
+    got = (d["launches"]["fused_mp_fwd"], d["launches"]["fused_mp_bwd"])
+    if name == "bench_train":
+        _, cfg, _ = trained_model("cpu", TRAIN_OVERRIDES)
+        for st in d["steps"]:
+            res = SimpleNamespace(fw=SolveStats(*st["fw"]),
+                                  bw=SolveStats(*st["bw"]))
+            want_l = expected_launches(res, cfg)
+            have = (st["launches"]["fused_mp_fwd"],
+                    st["launches"]["fused_mp_bwd"])
+            if have != want_l or 0 in have:
+                bad.append(f"step launches {have}, want {want_l}")
+        if len({st["fw"][1] for st in d["steps"]}) != 1:
+            bad.append("fw_nstep moved between the reps")
+        return bad
+    ranks = d.get("n_devices", 1)
+    # f_θ runs once per iteration and once at the start; phi_to and
+    # phi_from each launch the kernel once
+    want_l = (ranks * 2 * (HEADLINE_ITERS + 1), 0)
+    if d["iters"] != HEADLINE_ITERS or got != want_l \
+            or d["n_edges"] != HEADLINE_EDGES:
+        bad.append(f"iters {d['iters']}, launches {got} (want {want_l}), "
+                   f"n_edges {d['n_edges']}")
+    if name.startswith("bench_partition") and not (
+            np.isfinite(d["residual"]) and d["backend"]
+            == ("nccl" if ranks == 1 else "gloo")):
+        bad.append(f"residual {d['residual']}, backend {d['backend']}")
+    return bad
+
+
+def phase_bench(smi: str) -> dict:
+    """The port's benchmark as the benchmark runs it: one process of
+    ``python -m psignn_tpu_torch.bench`` per mode (partition on 1 NCCL
+    rank, then 2 gloo ranks sharing the card).  Returns each run's
+    (forward, backward) launches."""
+    launches = {}
+    for name, metric, argv in BENCH_RUNS:
+        line, seconds, log = bench_line(argv)
+        emit("bench", card=smi, run=name, argv=list(argv),
+             process_s=seconds, log=log, **line)
+        bad = bench_problems(name, metric, line)
+        if bad:
+            raise RuntimeError(f"{name} failed: {bad}: {line}")
+        launches[name] = (line["detail"]["launches"]["fused_mp_fwd"],
+                          line["detail"]["launches"]["fused_mp_bwd"])
+    return launches
 
 
 def phase_kernel_bwd(cases, device) -> dict:
@@ -815,60 +899,11 @@ def phase_kernel_bwd(cases, device) -> dict:
 
 def train_graph(n_meshes: int, seed: int, device,
                 variant: str = "dirichlet", form: str = "psignn"):
-    """``bench.py``'s training batch: seeded radius-1 blob meshes (hsize
-    0.08; mixed-BC ones for ``variant='mixed'``), FEM-solved, concatenated
-    into one graph; ``form='dss'`` gives the same Dirichlet meshes and
-    solves in DSS's A′ form."""
+    """``bench.train_samples``' batch in one graph (``variant``, ``form``:
+    the mixed meshes, DSS's A′ form)."""
     from psignn_tpu_torch.graphs import batch_graphs
-    return batch_graphs(train_samples(n_meshes, seed, variant, form),
-                        device=device)
-
-
-def train_samples(n_meshes: int, seed: int, variant: str = "dirichlet",
-                  form: str = "psignn") -> list:
-    """The samples of ``train_graph``."""
-    from psignn_tpu_torch.data.fem import solve_poisson, solve_poisson_mixed
-    from psignn_tpu_torch.data.meshgen import blob_mesh, mixed_blob_mesh
-    from psignn_tpu_torch.data.reader import (dss_sample_from_fem,
-                                              psignn_sample_from_fem)
-    make, solve = ((mixed_blob_mesh, solve_poisson_mixed)
-                   if variant == "mixed" else (blob_mesh, solve_poisson))
-    rng = np.random.default_rng(seed)
-    samples = []
-    for _ in range(n_meshes):
-        mesh = make(radius=1.0, hsize=0.08, rng=rng)
-        s = solve(mesh, 1.0, rng)
-        samples.append(dss_sample_from_fem(s) if form == "dss"
-                       else psignn_sample_from_fem(s, variant=variant))
-    return samples
-
-
-def trained_model(device, overrides=None, ckpt=CKPT):
-    """(model, cfg, initial state dict) of a trained checkpoint of any
-    family."""
-    from psignn_tpu_torch.weights import load_model_checkpoint
-    _, model, cfg = load_model_checkpoint(ckpt, device, overrides)
-    init = {k: v.clone() for k, v in model.state_dict().items()}
-    return model, cfg, init
-
-
-def step_from(model, cfg, init, graph, seed: int = 7,
-              stacked: bool = False):
-    """One ``train_step`` from the state ``init`` with fresh optimizers and
-    probes from ``seed``, timed by the host clock around it; ``stacked``
-    solves each graph of the batch on its own."""
-    from psignn_tpu_torch.train import make_optimizers, train_step
-    model.load_state_dict(init)
-    opts = make_optimizers(model, *TRAIN_LRS)
-    gen = torch.Generator().manual_seed(seed)
-    if graph.device.type == "cuda":
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = train_step(model, opts, graph, cfg, TRAIN_LRS, TRAIN_CLIP,
-                     TRAIN_JAC_WEIGHT, gen, stacked=stacked)
-    if graph.device.type == "cuda":
-        torch.cuda.synchronize()
-    return res, time.perf_counter() - t0
+    return batch_graphs(train_samples(n_meshes, seed, variant=variant,
+                                      form=form), device=device)
 
 
 def forward_seconds(model, cfg, init, graph, seed: int = 7) -> float:
@@ -2184,13 +2219,6 @@ def job_partitioned_train_step(samples: list, device: str) -> dict:
     return out
 
 
-def _rcm(sample: dict) -> dict:
-    from psignn_tpu_torch.dist.partition import (apply_node_permutation,
-                                                 rcm_permutation)
-    return apply_node_permutation(sample, rcm_permutation(
-        sample["senders"], sample["receivers"], sample["x"].shape[0]))
-
-
 def single_request(sample: dict, device,
                    overrides: dict = DIST_OVERRIDES) -> dict:
     """The single-process request on ``sample``."""
@@ -2284,11 +2312,11 @@ def phase_dist(sample, built, device, smi: str, seconds: dict) -> dict:
     card = device.type == "cuda"
     rank_dev, one_rank = ("cuda:0", "nccl") if card else ("cpu", "gloo")
     t0 = time.perf_counter()
-    rcm = _rcm(sample)
+    rcm = bench.rcm_ordered(sample)
     n_nodes = rcm["x"].shape[0]
     single = single_request(rcm, device)
     cmp_samples = train_samples(CMP_MESHES, 1)
-    two = [_rcm(s) for s in train_samples(2, 1)]
+    two = [bench.rcm_ordered(s) for s in train_samples(2, 1)]
     seconds["dist_setup"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3423,16 +3451,10 @@ def device_breakdown(run, top: int = 8, ranges=()) -> dict:
     each ``record_function`` name of ``ranges``, ``<name>_device_s`` is the
     device time of the kernels launched inside those ranges."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        profiled_wall = time.perf_counter() - t0
-    by_name: dict = {}
-    for ev in device_events(prof):
-        tot, cnt = by_name.get(ev.name, (0.0, 0))
-        by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
+    # the host's operators are recorded only where a range needs them:
+    # they add seconds to a trace of tens of thousands of launches
+    prof, profiled_wall = profiling.profiled(run, host=bool(ranges))
+    by_name = profiling.kernel_times(prof)
     busy_s = sum(t for t, _ in by_name.values()) * 1e-6
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     out = dict(profiled_wall_s=profiled_wall, device_kernel_s=busy_s,
@@ -3459,13 +3481,14 @@ def main() -> None:
     smi = timed("device", phase_device)
     device = torch.device("cuda")
     timed("build", phase_build)
-    graph, sample = timed("graphs", headline_graph, device)
+    graph, sample, _, _ = timed("graphs", bench.build_big_graph,
+                                device=device)
     # the 50-mesh batches by (sample form, variant)
     built, built_samples = {}, {}
     for form, variant in (("psignn", "dirichlet"), ("psignn", "mixed"),
                           ("dss", "dirichlet")):
         t0 = time.perf_counter()
-        chunk = train_samples(TRAIN_MESHES, 0, variant, form)
+        chunk = train_samples(TRAIN_MESHES, 0, variant=variant, form=form)
         g = batch_graphs(chunk, device=device)
         built[(form, variant)] = (g, time.perf_counter() - t0)
         built_samples[(form, variant)] = chunk
@@ -3476,6 +3499,7 @@ def main() -> None:
     bwd = timed("kernel_bwd", phase_kernel_bwd, cases, device)
     fwd["launches"] = timed("slice", phase_slice, device)
     timed("headline", phase_headline, graph, sample, device, smi)
+    benched = timed("bench", phase_bench, smi)
     bwd["launches"] = timed("train_step", phase_train_step, tgraph, tgraph_s,
                             device, smi)[1]
     _, mixed_test = timed("mixed_eval", phase_mixed_eval, device)
@@ -3508,9 +3532,11 @@ def main() -> None:
         **{path: n[0] for path, n in dist.items()},
         **{"trainer_" + run: n[0] for run, n in trainer.items()},
         **parity, nstep_study=nstep, **figures,
-        **{path: n[0] for path, n in operations.items()})
+        **{path: n[0] for path, n in operations.items()},
+        **{path: n[0] for path, n in benched.items()})
     bwd["launches_by_path"] = dict(
         train_step=bwd["launches"], stacked_train_step=stacked[1],
+        **{path: n[1] for path, n in benched.items() if n[1]},
         **{path: n[1] for path, n in dist.items() if n[1]},
         **{"trainer_" + run: n[1] for run, n in trainer.items()},
         **{path: n[1] for path, n in operations.items() if n[1]},

@@ -3,8 +3,11 @@
 Port of ``psignn_tpu/profiling.py``: ``trace`` is a ``torch.profiler``
 context in place of ``jax.profiler``'s, ``timed`` synchronises the card
 in place of JAX's host transfer, and ``EdgeThroughput`` keeps the JAX
-package's arithmetic and report keys.  Nothing on the main path uses it;
-it is the accounting a benchmark of the port times with.
+package's arithmetic and report keys.  ``device_events``, ``kernel_times``
+and ``profiled`` read the device's kernel time out of a ``torch.profiler``
+trace: the busy share ``bench`` and ``chip_smoke.py`` report.  Nothing on
+the main path uses this module; it is the accounting a benchmark of the
+port times with.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import contextlib
 import itertools
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -70,6 +73,44 @@ def timed(fn, *args, reps: int = 3, warmup: int = 1):
         _synchronize(out)
         times.append(time.perf_counter() - t0)
     return out, min(times)
+
+
+def device_events(prof) -> list:
+    """The device's kernels and copies in a ``torch.profiler`` trace.  A
+    ``record_function`` range (``Optimizer.step#Adam.step``) also shows on
+    the device's timeline, spanning its kernels and the gaps between them;
+    it is left out."""
+    from torch.autograd import DeviceType
+    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)]
+
+
+def kernel_times(prof) -> Dict[str, Tuple[float, int]]:
+    """{name: (device µs, count)} of the trace's ``device_events``.  The
+    port's kernels run on one stream, so their times add up to the time
+    the device was busy."""
+    by_name: Dict[str, Tuple[float, int]] = {}
+    for ev in device_events(prof):
+        tot, cnt = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (tot + ev.time_range.elapsed_us(), cnt + 1)
+    return by_name
+
+
+def profiled(run, host: bool = True):
+    """(profiler, wall seconds) of one ``run()`` under ``torch.profiler``
+    (the card when there is one, and with ``host`` — or without a card —
+    the CPU's operators, which ``record_function`` ranges need), the card
+    waited for."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = ([ProfilerActivity.CUDA] if torch.cuda.is_available()
+                  else [])
+    if host or not activities:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        _synchronize(run())
+        wall = time.perf_counter() - t0
+    return prof, wall
 
 
 class EdgeThroughput:

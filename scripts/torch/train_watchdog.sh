@@ -21,13 +21,14 @@ RESULTS=${RESULTS:-results}
 MATCH=psignn_tpu_torch.cli.main
 
 descendants() {  # $1 = pid: every process under it, from /proc/*/stat
-  awk -v root="$1" '
-    { sub(/.*\) /, ""); split(FILENAME, f, "/"); kids[$2] = kids[$2] " " f[3] }
+  # through cat: a process that exits between the glob and its read must
+  # not end the scan (awk stops at the first file it cannot open)
+  cat /proc/[0-9]*/stat 2>/dev/null | awk -v root="$1" '
+    { pid = $1; sub(/.*\) /, ""); kids[$2] = kids[$2] " " pid }
     END { n = 1; q[1] = root
           for (i = 1; i <= n; i++) {
             m = split(kids[q[i]], k, " ")
-            for (j = 1; j <= m; j++) { print k[j]; q[++n] = k[j] } } }' \
-    /proc/[0-9]*/stat 2>/dev/null
+            for (j = 1; j <= m; j++) { print k[j]; q[++n] = k[j] } } }'
 }
 
 while true; do

@@ -134,8 +134,8 @@ def test_scan_covers_every_module():
     """The import checks above read every module of the training slice,
     of the mixed slice, of the DSS and DS-GPS slice, of the multi-device
     slice (and the rank workers), of the Newton slice and of the parity,
-    nstep-study and curves slice and of the figures slice, and the three
-    kernel sources exist beside the kernel module.  ``h5py`` is imported
+    nstep-study and curves slice, of the figures slice and the bench, and
+    the three kernel sources exist beside the kernel module.  ``h5py`` is imported
     inside ``meshgen.mesh_from_dolfin_h5`` and nowhere at import time;
     matplotlib and Pillow inside ``vis``'s drawing functions."""
     scanned = {str(p.relative_to(PORT)) for p in _port_sources()
@@ -151,7 +151,7 @@ def test_scan_covers_every_module():
             "dist/dryrun.py", "compat.py", "profiling.py",
             "entry.py", "eval/parity.py", "eval/nstep_study.py",
             "eval/curves.py", "eval/registry.py", "eval/vis.py",
-            "train/plots.py", "eval/figures.py"} <= scanned
+            "train/plots.py", "eval/figures.py", "bench.py"} <= scanned
     assert ROOT / "tests" / "_torch_dist.py" in _port_sources()
     assert SCRIPTS / "make_warmae_ckpt.py" in _port_sources()
     assert [p.name for p in NOTEBOOKS] == [

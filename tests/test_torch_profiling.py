@@ -50,6 +50,39 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert any("mm" in ev.get("name", "") for ev in events)
 
 
+def test_kernel_times_count_device_kernels_only():
+    """``kernel_times`` sums the device's kernels and copies of a trace by
+    name; ``record_function`` ranges on the device's timeline and the
+    host's events are left out (``device_events``)."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def ev(name, us, device=DeviceType.CUDA, annotation=False):
+        span = SimpleNamespace(elapsed_us=lambda: us)
+        return SimpleNamespace(name=name, device_type=device,
+                               is_user_annotation=annotation,
+                               time_range=span)
+
+    prof = SimpleNamespace(events=lambda: [
+        ev("fused_mp_fwd", 5.0), ev("fused_mp_fwd", 7.0), ev("memcpy", 1.5),
+        ev("Optimizer.step#Adam.step", 900.0, annotation=True),
+        ev("aten::mm", 40.0, device=DeviceType.CPU)])
+    assert [e.name for e in profiling.device_events(prof)] == [
+        "fused_mp_fwd", "fused_mp_fwd", "memcpy"]
+    assert profiling.kernel_times(prof) == {"fused_mp_fwd": (12.0, 2),
+                                            "memcpy": (1.5, 1)}
+
+
+@pytest.mark.parametrize("host", [True, False])
+def test_profiled_runs_once_and_times_it(host):
+    calls = []
+    prof, wall = profiling.profiled(lambda: calls.append(time.sleep(0.01)),
+                                    host)
+    assert calls == [None] and wall >= 0.01
+    assert profiling.kernel_times(prof) == {}        # no card here
+
+
 def test_entry_samples_and_forward():
     """The entry's samples are ``__graft_entry__``'s (same seeds, same
     meshes and normalisation); its forward runs and differentiates on the

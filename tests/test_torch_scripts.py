@@ -376,6 +376,36 @@ def test_quiet_card_pauses_port_trainers_and_their_ranks(tmp_path):
             os.kill(kid, signal.SIGKILL)
 
 
+@pytest.mark.parametrize("script", ["with_quiet_card.sh",
+                                    "train_watchdog.sh", "solo_epoch.sh"])
+def test_descendants_survive_process_churn(script):
+    """Each script's ``descendants`` finds a child under a churn of
+    short-lived processes: one that exits between the ``/proc`` glob and
+    its read must not end the scan (awk stopped at such a file and found
+    the child in 3 of 40 scans)."""
+    text = open(os.path.join(TORCH, script)).read()
+    start = text.index("descendants() {")
+    func = text[start:text.index("\n}\n", start) + 3]
+    churn = [subprocess.Popen(["bash", "-c", "while :; do /bin/true; done"])
+             for _ in range(2)]
+    parent = subprocess.Popen(["bash", "-c", "sleep 300 & echo $!; wait"],
+                              stdout=subprocess.PIPE, text=True)
+    try:
+        kid = parent.stdout.readline().strip()
+        for _ in range(5):
+            found = subprocess.run(
+                ["bash", "-c", func + f"descendants {parent.pid}"],
+                capture_output=True, text=True, timeout=60).stdout.split()
+            assert kid in found, (script, kid, found)
+    finally:
+        for p in churn:
+            p.kill()
+            p.wait()
+        subprocess.run(["pkill", "-P", str(parent.pid)])
+        parent.kill()
+        parent.wait()
+
+
 # ------------------------------------------------------------ protocols
 
 
