@@ -12,7 +12,20 @@ Phases, each printing one JSON line:
 2. build      — compile the three CUDA kernels (forward, backward, JVP)
                 from ``psignn_tpu_torch/kernels/csrc``, one ``nvcc`` each,
                 in parallel.
-3. kernel     — the forward fused message-passing kernel against its
+3. native     — the port's host runtime, ``psignn_tpu_torch/native.py``:
+                its library built from ``kernels/csrc/psignncore.cpp``
+                with the host's C++ compiler (build seconds, the CPU
+                model), then its five functions on the headline mesh,
+                held without JAX to the port's scipy/numpy path:
+                assembly and load vector against ``data.fem.assemble_p1``
+                to 1e-12, CG against ``spsolve`` to rtol 1e-7, RCM as a
+                permutation with a bandwidth below n/4 beside
+                ``dist.partition.rcm_permutation``'s, and the edge-block
+                packing of the RCM-ordered mesh (each edge placed once,
+                ``need`` ≤ ``e_cap``, ``win_start`` non-decreasing, every
+                edge inside its block's window); each function's host
+                seconds beside its counterpart's.
+4. kernel     — the forward fused message-passing kernel against its
                 plain PyTorch version on the card, both directions, on the
                 radius-5 headline mesh at edge_dim 3 and 1, on the train
                 step's 50-mesh batch, on the mixed train batch's ``from``
@@ -22,17 +35,17 @@ Phases, each printing one JSON line:
                 the device time of every kernel the call launched), the
                 bound.  Then, checked but not timed: width 20, two small
                 ragged graphs and a CSR with no edges.
-4. kernel_bwd — the same for the backward kernel (the VJP), against
+5. kernel_bwd — the same for the backward kernel (the VJP), against
                 ``mp_vjp_from_csr``, every output.
-5. slice      — inference as a user runs it: the trained Ψ-GNN checkpoint
+6. slice      — inference as a user runs it: the trained Ψ-GNN checkpoint
                 through ``eval.run_eval.load_predictor`` and
                 ``eval.sweep.growing_geometry_sweep`` on one mesh at each of
                 radii 1, 2 and 5, counting kernel launches; then the
                 radius-1 request again on the CPU to check agreement.
-6. headline   — 531 Broyden iterations (fw_tol 0) on the radius-5 mesh with
+7. headline   — 531 Broyden iterations (fw_tol 0) on the radius-5 mesh with
                 seeded random weights: wall seconds, edge-messages/s and the
                 kernel launches of each timed run (two per f_θ call).
-7. bench      — the port's benchmark as a benchmark runs it: one process
+8. bench      — the port's benchmark as a benchmark runs it: one process
                 of ``python -m psignn_tpu_torch.bench`` per mode —
                 inference, train, partition on 1 NCCL rank, then on 2 gloo
                 ranks sharing the card — each of whose one stdout line
@@ -41,27 +54,27 @@ Phases, each printing one JSON line:
                 2 · 532 forward launches a rank (inference, partition), and
                 launches equal to ``expected_launches`` with one fw_nstep
                 across the reps (train).
-8. train_step — the implicit-gradient train step of ``bench.py:110-200``
+9. train_step — the implicit-gradient train step of ``bench.py:110-200``
                 through ``train.train_step``: 50 seeded radius-1 meshes in
                 one batch, the trained weights, a warm-up and three timed
                 steps from one starting state with their kernel launches,
                 one profiled step, and a 2-mesh step on the GPU against the
                 same step on the CPU.
-9. mixed_eval — mixed Dirichlet+Neumann inference as a user runs it: a
+10. mixed_eval — mixed Dirichlet+Neumann inference as a user runs it: a
                 fresh seeded mixed dataset from ``data.generate``, its test
                 split answered with the trained ``results/psignn_mixed``
                 checkpoint through ``run_eval``'s ``load_predictor`` →
                 ``split_dataset`` → ``GraphLoader`` → ``evaluate_dataset``
                 (three launches per f_θ call); then the same batch on the
                 CPU.
-10. mixed_train_step — the train step of phase 8 on 50 seeded mixed
+11. mixed_train_step — the train step of phase 9 on 50 seeded mixed
                 meshes with the mixed weights, and its 2-mesh GPU-vs-CPU
                 step.
-11. solvers   — the radius-1 sweep mesh solved with the trained Dirichlet
+12. solvers   — the radius-1 sweep mesh solved with the trained Dirichlet
                 weights by ``forward_iteration``, ``anderson`` and
                 Broyden with its line search, each against the CPU.
-12. newton    — Newton and Newton-Krylov: the JVP kernel against its
-                plain version at every Ψ-GNN-width case of phase 3 (timed
+13. newton    — Newton and Newton-Krylov: the JVP kernel against its
+                plain version at every Ψ-GNN-width case of phase 4 (timed
                 at the headline mesh and the 50-mesh batch, both
                 directions); Newton-Krylov requests of the trained
                 Dirichlet Ψ-GNN on the radius-1 and radius-5 sweep meshes
@@ -75,39 +88,39 @@ Phases, each printing one JSON line:
                 its final checkpoint; a reference
                 ``state_dict`` through ``compat`` against the
                 ``weights.py`` route.
-13. families  — a sweep request of each model family as a user runs it:
+14. families  — a sweep request of each model family as a user runs it:
                 the trained Ψ-GNN, DS-GPS and DSS Dirichlet checkpoints
                 through ``load_predictor`` and ``growing_geometry_sweep``
                 on one mesh at each of radii 1, 2 and 5 (DS-GPS and DSS
                 launch the kernel exactly 2k times a request); then the
                 radius-1 request of DS-GPS and DSS on the CPU.
-14. dsgps_mixed_eval — phase 9's mixed test batch answered by the trained
+15. dsgps_mixed_eval — phase 10's mixed test batch answered by the trained
                 ``results/dsgps_mixed`` checkpoint (3k launches), then on
                 the CPU.
-15. unrolled_train_step — ``train.unrolled_train_step`` of DSS (the
+16. unrolled_train_step — ``train.unrolled_train_step`` of DSS (the
                 50-mesh batch's A′ form), DS-GPS (the 50-mesh batch) and
                 mixed DS-GPS (the mixed 50-mesh batch) from their trained
                 weights: a warm-up that also creates Adam's state, three
                 timed steps from the same parameters with 2k (mixed 3k)
                 forward and backward launches each, one profiled step,
                 and a 2-mesh step on the GPU against the CPU.
-16. stacked_train_step — phase 8's step with one DEQ solve per mesh
+17. stacked_train_step — phase 9's step with one DEQ solve per mesh
                 (``--stacked_batch``): each mesh's forward steps, launches,
                 seconds, busy share; then its 2-mesh GPU-vs-CPU step.
-17. lowrank   — phase 6's loop with Broyden's rank memory capped at 640
+18. lowrank   — phase 7's loop with Broyden's rank memory capped at 640
                 (never wraps: bit-identical to full memory) and 128 (wraps
                 from step 129), each with f32 and bfloat16 pairs: wall;
                 device time and the rank products' share of the cap-128
                 runs; then an 8-pair ring on the radius-1 mesh on the GPU
                 against the CPU.
-18. zoo       — the 12 out-of-distribution shapes through ``run_eval
+19. zoo       — the 12 out-of-distribution shapes through ``run_eval
                 --zoo``'s path with the trained Dirichlet checkpoint; then
                 one shape on the CPU.
-19. iterative — ``psignn_iterative_inference`` on the radius-1 sweep mesh,
+20. iterative — ``psignn_iterative_inference`` on the radius-1 sweep mesh,
                 then against the CPU.
-20. several_init — ``test_several_init`` (four starting points) on the
+21. several_init — ``test_several_init`` (four starting points) on the
                 radius-1 sweep mesh's sample, on the card and the CPU.
-21. dist      — the multi-rank paths, each rank one spawned process on
+22. dist      — the multi-rank paths, each rank one spawned process on
                 the card (one H100: several ranks share it over gloo,
                 staging through the host; NCCL is checked on one rank):
                 ``dist_partitioned`` (the trained Dirichlet Ψ-GNN's Picard
@@ -122,7 +135,7 @@ Phases, each printing one JSON line:
                 parts 2 on two RCM-ordered radius-1 meshes, the card
                 against the CPU); a ``dist_world`` line says where each
                 world's seconds went.
-22. trainer   — training as a user runs it: a fresh Dirichlet dataset
+23. trainer   — training as a user runs it: a fresh Dirichlet dataset
                 (with DSS's encoding) and a fresh mixed one from
                 ``data.generate``, one epoch of ``cli.main`` for Ψ-GNN in
                 each variant, DSS, and DS-GPS in each variant, one more
@@ -141,7 +154,7 @@ Phases, each printing one JSON line:
                 parse_val``) to the values its trainer kept, and the Ψ-GNN
                 Dirichlet log is compared with the JAX trainer's
                 (``curves.compare``).
-23. parity    — the growing-geometry parity table as ``eval.parity``
+24. parity    — the growing-geometry parity table as ``eval.parity``
                 makes it: the trained Ψ-GNN, DS-GPS (k = 100) and DSS
                 (k = 30) Dirichlet checkpoints through
                 ``build_predictors(source="trained")`` at fw_tol 1e-5 /
@@ -150,14 +163,14 @@ Phases, each printing one JSON line:
                 per family and radius and each family's launches; the
                 reference checkpoints' skip line; then the first radius-0.6
                 mesh on the card and the CPU.
-24. nstep_study — ``eval.nstep_study.study`` with the trained Ψ-GNN (fw
+25. nstep_study — ``eval.nstep_study.study`` with the trained Ψ-GNN (fw
                 1e-5 / 600) on three radius-1 blob meshes and one circle
                 mesh, 8 right-hand sides each; the reference checkpoint's
                 skip line and the absent gmsh meshes; then the circle
                 mesh's 8 right-hand sides on the card and the CPU: step
                 counts printed, the first 4 iterates and the mean MSE
                 held.
-25. figures   — the paper figures' path, ``eval.figures`` (the JAX
+26. figures   — the paper figures' path, ``eval.figures`` (the JAX
                 package's ``tools/make_figures.py``): the iterate traces of
                 the trained Ψ-GNN (fw_thres 300) and of both DS-GPS
                 checkpoints (k = 30) on fresh factory samples, on the card
@@ -169,7 +182,7 @@ Phases, each printing one JSON line:
                 call must raise an ``ImportError`` naming it; with
                 matplotlib the figures are drawn from the card's traces and
                 their files checked.
-26. operations — the run operations of ``scripts/torch`` as a user runs
+27. operations — the run operations of ``scripts/torch`` as a user runs
                 them: ``generate_datasets.sh`` at 3 meshes × 30 samples;
                 one epoch of each of the six training protocols, its CLI
                 arguments parsed from its script (the DS-GPS Dirichlet one
@@ -344,6 +357,21 @@ NEWTON_TRAIN_FLAGS = ("--solver", "newton_krylov", "--fw_thres", "50",
                       "--bw_thres", "50", "--resume", CKPT)
 
 
+# the native phase: assembly within NATIVE_TOL of data.fem.assemble_p1
+# (absolute, entries of order 1), the load vector within rtol NATIVE_TOL and
+# atol NATIVE_LOAD_ATOL, CG (relative residual 1e-12) against spsolve within
+# rtol NATIVE_CG_RTOL and atol NATIVE_CG_ATOL: tests/test_native.py's
+# tolerances.  NATIVE_BLOCK_N is the JAX kernel's block of aggregation
+# nodes; each function's time is the best of NATIVE_REPS calls after one
+# warm-up call.
+NATIVE_TOL = 1e-12
+NATIVE_LOAD_ATOL = 1e-14
+NATIVE_CG_RTOL = 1e-7
+NATIVE_CG_ATOL = 1e-9
+NATIVE_BLOCK_N = 128
+NATIVE_REPS = 5
+
+
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -488,6 +516,150 @@ def phase_build() -> None:
                  if "registers" in ln or "spill" in ln]
         emit("build", kernel=name, seconds=wall, nvcc_seconds=res.seconds,
              library=str(res.path.name), ptxas=ptxas)
+
+
+def phase_native(smi: str) -> dict:
+    """The port's host runtime (``native.py``): its library built from the
+    checkout, then its five functions on the headline mesh against the
+    port's scipy/numpy path, each timed beside that counterpart."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from psignn_tpu_torch import native
+    from psignn_tpu_torch.data.fem import (_QP, _QW, apply_dirichlet,
+                                           assemble_p1)
+    from psignn_tpu_torch.data.meshgen import blob_mesh
+    from psignn_tpu_torch.dist.partition import rcm_permutation
+    from psignn_tpu_torch.kernels import build
+    from psignn_tpu_torch.kernels.fused_mp import pack_csr
+
+    def timed_host(fn):
+        return profiling.timed(fn, reps=NATIVE_REPS)
+
+    res = build.build(native.LIBRARY)
+    if not native.available():
+        raise RuntimeError("native library built but does not load")
+    info = build.host_cpu()
+    cpu = {field: info.get(field) for field in build.CPU_FIELDS[:3]}
+    emit("native_build", seconds=res.seconds, library=res.path.name,
+         cxx=build.find_cxx(), flags=build.CXX_FLAGS, cpu=cpu,
+         cores=os.cpu_count(), nvidia_smi=smi)
+    # bench.headline_sample's mesh
+    mesh = blob_mesh(radius=5.0, hsize=0.08, rng=np.random.default_rng(0))
+    n = mesh.n_points
+    out = dict(n_points=n, n_triangles=len(mesh.triangles), cpu=cpu,
+               nvidia_smi=smi)
+
+    def f(x, y):
+        return 1.0 + x ** 2 - 2 * y
+
+    # assembly and load vector, against data.fem.assemble_p1 (both at once)
+    (A_py, b_py), py_s = timed_host(lambda: assemble_p1(mesh, f))
+    (rows, cols, vals), coo_s = timed_host(
+        lambda: native.assemble_p1_coo(mesh.points, mesh.triangles))
+    A_nat = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    A_nat.sum_duplicates()
+    lam = np.stack([1.0 - _QP[:, 0] - _QP[:, 1], _QP[:, 0], _QP[:, 1]], 1)
+    p = [mesh.points[mesh.triangles[:, i]] for i in range(3)]
+    xq = sum(lam[None, :, i:i + 1] * p[i][:, None] for i in range(3))
+    fq = f(xq[..., 0], xq[..., 1])
+    b_nat, load_s = timed_host(lambda: native.assemble_load(
+        mesh.points, mesh.triangles, fq, lam, _QW, n))
+    out["assemble_p1_coo"] = dict(
+        native_s=coo_s, scipy_s=py_s,
+        counterpart="data.fem.assemble_p1",
+        max_abs_err=float(abs(A_py - A_nat).max()))
+    out["assemble_load"] = dict(
+        native_s=load_s, scipy_s=py_s,
+        counterpart="data.fem.assemble_p1",
+        max_abs_err=float(np.abs(b_nat - b_py).max()))
+    # CG on the interior-eliminated system, against spsolve of
+    # apply_dirichlet's system (data.fem.solve_poisson's solve)
+    A, b = assemble_p1(mesh, lambda x, y: np.full_like(x, -4.0))
+    bidx = np.where(mesh.boundary_mask)[0]
+    g = mesh.points[bidx, 0] ** 2 + mesh.points[bidx, 1] ** 2
+    Ad, bd = apply_dirichlet(A.copy(), b.copy(), bidx, g)
+    want, sp_s = timed_host(lambda: spla.spsolve(Ad.tocsc(), bd))
+    iidx = np.where(~mesh.boundary_mask)[0]
+    A_II = A[iidx][:, iidx].tocsr()
+    rhs = b[iidx] - A[iidx][:, bidx] @ g
+    (x, iters), cg_s = timed_host(lambda: native.solve_cg(
+        A_II.indptr.astype(np.int64), A_II.indices, A_II.data, rhs))
+    cg_ok = np.allclose(x, want[iidx], rtol=NATIVE_CG_RTOL,
+                        atol=NATIVE_CG_ATOL)
+    out["solve_cg"] = dict(
+        native_s=cg_s, scipy_s=sp_s,
+        counterpart="scipy.sparse.linalg.spsolve",
+        iterations=iters, n_interior=len(iidx),
+        max_abs_err=float(np.abs(x - want[iidx]).max()))
+    # RCM beside scipy's (dist.partition.rcm_permutation)
+    A = A.tocsr()
+    perm, rcm_s = timed_host(lambda: native.rcm_order(
+        A.indptr.astype(np.int64), A.indices, n))
+    senders, receivers, _ = sp.find(A)
+    sperm, sc_s = timed_host(
+        lambda: rcm_permutation(senders, receivers, n))
+
+    def bandwidth(order):
+        inv = np.empty_like(order)
+        inv[order] = np.arange(n)
+        return int(np.abs(inv[senders] - inv[receivers]).max())
+
+    is_perm = np.array_equal(np.sort(perm), np.arange(n))
+    out["rcm_order"] = dict(
+        native_s=rcm_s, scipy_s=sc_s,
+        counterpart="dist.partition.rcm_permutation",
+        bandwidth=bandwidth(perm) if is_perm else None,
+        scipy_bandwidth=bandwidth(np.asarray(sperm)),
+        mesh_order_bandwidth=int(np.abs(senders - receivers).max()))
+    # the JAX package's edge-block packing of the RCM-ordered mesh (its TPU
+    # kernel's banded windows need the order), beside the port's own
+    # packing of the same edges, a CSR (kernels.fused_mp.pack_csr)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(n, dtype=perm.dtype)
+    s, r = inv[senders], inv[receivers]
+    keep = s != r
+    order = np.argsort(r[keep], kind="stable")
+    agg, oth = r[keep][order], s[keep][order]
+    n_cap = -(-n // 256) * 256
+    counts = np.bincount(agg // NATIVE_BLOCK_N,
+                         minlength=n_cap // NATIVE_BLOCK_N)
+    e_cap = max(NATIVE_BLOCK_N, -(-int(counts.max()) // NATIVE_BLOCK_N)
+                * NATIVE_BLOCK_N)
+    (al, og, mask, ws, need), pack_s = timed_host(
+        lambda: native.pack_mp_blocks_core(agg, oth, n_cap, NATIVE_BLOCK_N,
+                                           e_cap))
+    ea = np.zeros((len(s), 3), np.float32)
+    _, csr_s = timed_host(lambda: pack_csr(s, r, ea, n, "to",
+                                             device="cpu"))
+    live = mask > 0
+    blk = np.nonzero(live)[0]
+    placed = sorted(zip((al[live] + blk * NATIVE_BLOCK_N).tolist(),
+                        og[live].tolist()))
+    in_window = bool(np.all((og[live] >= ws[blk])
+                            & (og[live] < ws[blk] + need)))
+    out["pack_mp_blocks_core"] = dict(
+        native_s=pack_s, scipy_s=csr_s,
+        counterpart="kernels.fused_mp.pack_csr",
+        edges=int(len(agg)), blocks=int(len(ws)), e_cap=e_cap, need=need)
+    emit("native", **out)
+
+    bad = []
+    if out["assemble_p1_coo"]["max_abs_err"] >= NATIVE_TOL:
+        bad.append("assemble_p1_coo")
+    if not np.allclose(b_nat, b_py, rtol=NATIVE_TOL, atol=NATIVE_LOAD_ATOL):
+        bad.append("assemble_load")
+    if not cg_ok or iters <= 0:
+        bad.append("solve_cg")
+    if not is_perm or out["rcm_order"]["bandwidth"] >= n // 4:
+        bad.append("rcm_order")
+    if placed != sorted(zip(agg.tolist(), oth.tolist())) \
+            or need > e_cap or np.any(np.diff(ws) < 0) or not in_window:
+        bad.append("pack_mp_blocks_core")
+    if bad:
+        raise RuntimeError(f"native disagrees with the scipy/numpy path: "
+                           f"{bad}: {out}")
+    return out
 
 
 def mp_cases(graph, sample, tgraph, mgraph, dgraph, device):
@@ -3481,6 +3653,7 @@ def main() -> None:
     smi = timed("device", phase_device)
     device = torch.device("cuda")
     timed("build", phase_build)
+    timed("native", phase_native, smi)
     graph, sample, _, _ = timed("graphs", bench.build_big_graph,
                                 device=device)
     # the 50-mesh batches by (sample form, variant)
