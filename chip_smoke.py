@@ -51,9 +51,10 @@ Phases, each printing one JSON line:
                 ranks sharing the card — each of whose one stdout line
                 must carry bench.py's keys, finite positive value, device
                 time and busy share, 531 iterations over 76,353 edges and
-                2 · 532 forward launches a rank (inference, partition), and
+                2 · 532 forward launches a rank (inference, partition),
                 launches equal to ``expected_launches`` with one fw_nstep
-                across the reps (train).
+                across the reps (train), and ``detail.rcm`` true
+                (inference, train: bench.py's default node order).
 9. train_step — the implicit-gradient train step of ``bench.py:110-200``
                 through ``train.train_step``: 50 seeded radius-1 meshes in
                 one batch, the trained weights, a warm-up and three timed
@@ -195,6 +196,25 @@ Phases, each printing one JSON line:
                 compute cells (those not tagged ``draw``) of
                 ``notebooks/demo_torch.ipynb`` and
                 ``comparatives_torch.ipynb``.
+28. order     — the node orders of JAX's fused kernels (``--rcm`` /
+                ``--pallas``, the bench's default) and ``--cache_batches``:
+                the forward, backward and JVP kernels on the headline mesh
+                and the 50-mesh train batch, each in mesh order and in
+                reverse Cuthill-McKee order (``to`` and ``from``): against
+                the plain version within 1e-5 · max(1, max|out|), a
+                relaunch bit-identical, the RCM answer equal to the
+                mesh-order one permuted; device ms a call in turns (mesh,
+                RCM, RCM, mesh) beside the bound of the shapes; the
+                trained Dirichlet Ψ-GNN's request on the radius-5 sweep
+                mesh in both orders (each nstep printed; the answers, un-
+                permuted, held by residual and by the first 4 iterates);
+                the Ψ-GNN mixed protocol's CLI (``--pallas --cache_batches
+                1``) for one epoch on a fresh small mixed dataset, then
+                resumed: every yielded batch a stored one, the resumed
+                epoch's batches the first epoch's sample sets, every
+                stored tensor bit-equal after the steps, the cache's bytes
+                and ``max_memory_allocated`` once it is built, and its
+                bytes reckoned for the canonical 200 × 50 dataset.
 
 Then a ``seconds`` line (each phase's wall seconds; ``graphs`` builds the
 headline mesh and the three 50-mesh batches), one ``{"kernels": [...]}``
@@ -922,15 +942,16 @@ BENCH_RUNS = (
      ("--mode", "partition", "--num_devices", "2", "--device", "cuda:0")))
 BENCH_TIMEOUT = 300
 # bench.py's detail keys of each metric (but ``pallas_mp``; the train
-# mode's with the checkpoint it read), and the port's own: launches,
-# device time, busy share, card
+# mode's with the checkpoint it read; the inference and train modes' with
+# ``rcm``, their node order), and the port's own: launches, device time,
+# busy share, card
 BENCH_DETAIL = {
     "psignn_fixed_point_edges_per_s": {
         "n_nodes", "n_edges", "iters", "wall_s", "solver",
-        "baseline_edges_per_s"},
+        "baseline_edges_per_s", "rcm"},
     "psignn_train_step_seconds": {
         "n_nodes", "n_edges", "fw_nstep", "loss", "epoch_s_extrapolated",
-        "baseline_step_s", "ckpt"},
+        "baseline_step_s", "ckpt", "rcm"},
     "psignn_partitioned_fixed_point_edges_per_s": {
         "n_nodes", "n_edges", "n_devices", "iters", "wall_s", "halo",
         "n_loc", "residual"}}
@@ -944,9 +965,12 @@ def bench_line(argv) -> tuple:
     exits 0 with exactly one line on stdout."""
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
+    # bench.py's default node order (RCM): its switch left unset
+    env = {k: v for k, v in os.environ.items()
+           if k != "PSIGNN_TPU_BENCH_PALLAS"}
     proc = subprocess.run(
         [sys.executable, "-m", "psignn_tpu_torch.bench", *argv], cwd=root,
-        capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
     seconds = time.perf_counter() - t0
     lines = proc.stdout.splitlines()
     if proc.returncode != 0 or len(lines) != 1:
@@ -972,6 +996,9 @@ def bench_problems(name: str, metric: str, line: dict) -> list:
                for v in values):
         bad.append(f"values {values}")
     got = (d["launches"]["fused_mp_fwd"], d["launches"]["fused_mp_bwd"])
+    if "rcm" in BENCH_DETAIL[metric] and d["rcm"] is not True:
+        # bench.py's default order: RCM (PSIGNN_TPU_BENCH_PALLAS unset)
+        bad.append(f"rcm {d['rcm']}")
     if name == "bench_train":
         _, cfg, _ = trained_model("cpu", TRAIN_OVERRIDES)
         for st in d["steps"]:
@@ -1015,6 +1042,341 @@ def phase_bench(smi: str) -> dict:
             raise RuntimeError(f"{name} failed: {bad}: {line}")
         launches[name] = (line["detail"]["launches"]["fused_mp_fwd"],
                           line["detail"]["launches"]["fused_mp_bwd"])
+    return launches
+
+
+# the order phase: the kernels at both node orders, a trained request at
+# both, and a CLI epoch with the mixed protocol's flags, resumed
+ORDER_KERNELS = (
+    ("fused_mp_fwd", "fused_message_passing", "mp_from_csr", False,
+     fused_mp_bound),
+    ("fused_mp_bwd", "fused_mp_vjp", "mp_vjp_from_csr", True,
+     fused_mp_bwd_bound),
+    ("fused_mp_jvp", "fused_mp_jvp", "mp_jvp_from_csr", True,
+     fused_mp_jvp_bound))
+ORDER_RADIUS = 5.0
+ORDER_DATA = dict(n_mesh=3, n_samples=4, radius=1.0, hsize=0.08)
+ORDER_BATCH = "3"
+# the canonical dataset (resume_round.sh's factory call): 200 meshes × 50
+# samples, its train and validation parts cached (60 % and 20 %)
+CANONICAL_SAMPLES = 200 * 50
+CANONICAL_CACHED = 0.8
+
+
+def node_orders(samples: list) -> tuple:
+    """(RCM-ordered samples, the batch's permutation): row i of the
+    RCM-ordered batch is row ``perm[i]`` of the mesh-ordered one."""
+    from psignn_tpu_torch.dist.partition import (apply_node_permutation,
+                                                 rcm_permutation)
+    out, perms, off = [], [], 0
+    for s in samples:
+        n = s["x"].shape[0]
+        p = rcm_permutation(s["senders"], s["receivers"], n)
+        out.append(apply_node_permutation(s, p))
+        perms.append(p + off)
+        off += n
+    return out, np.concatenate(perms)
+
+
+def bandwidth(graph) -> int:
+    """The largest |i − j| over the edges of a batch (edges join nodes of
+    one mesh, so it is the widest mesh's)."""
+    return int((graph.senders - graph.receivers).abs().max())
+
+
+def order_kernels(meshes: dict, device, smi: str) -> list:
+    """Each kernel of ``ORDER_KERNELS`` on each mesh of ``meshes``
+    ({name: (mesh-order graph, RCM graph, perm)}), ``to`` and ``from``, in
+    both orders: against its plain version within KERNEL_REL_TOL, a
+    relaunch bit-identical, the RCM answer equal to the mesh-order one
+    permuted; ``to`` timed in turns (mesh, RCM, RCM, mesh) by
+    ``kernel_device_ms``, each time's share of the bound of the shapes
+    (the same in both orders)."""
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    rows = []
+    for k, (name, wrapper, plain, with_g, bound) in enumerate(ORDER_KERNELS):
+        kernel, ref = getattr(mp, wrapper), getattr(mp, plain)
+        for m, (mesh, (graph, rgraph, perm)) in enumerate(meshes.items()):
+            for direction in ("to", "from"):
+                csrs = {o: (g.mp_to if direction == "to" else g.mp_from)
+                        for o, g in (("mesh", graph), ("rcm", rgraph))}
+                w1, b1, w2, b2, h, g = case_inputs(
+                    300 + 10 * k + m, csrs["mesh"], WIDTH, 3, device)
+                idx = torch.as_tensor(perm, device=device)
+                args = {o: (w1, b1, w2, b2, h if o == "mesh" else h[idx],
+                            csrs[o])
+                        + ((g if o == "mesh" else g[idx],) if with_g
+                           else ())
+                        for o in csrs}
+                rec = dict(kernel=name, mesh=mesh, direction=direction,
+                           n_rows=graph.total_nodes,
+                           n_edges=csrs["mesh"].n_edges,
+                           bandwidth={"mesh": bandwidth(graph),
+                                      "rcm": bandwidth(rgraph)})
+                outs = {}
+                with torch.no_grad():
+                    for o, a in args.items():
+                        out1, out2 = kernel(*a), kernel(*a)
+                        want = ref(*a)
+                        torch.cuda.synchronize()
+                        out1, out2, want = (
+                            x if isinstance(x, tuple) else (x,)
+                            for x in (out1, out2, want))
+                        err = max(float((a_ - b_).abs().max())
+                                  for a_, b_ in zip(out1, want))
+                        scale = max(float(b_.abs().max()) for b_ in want)
+                        rec[f"max_abs_err_{o}"] = err
+                        rec[f"bit_identical_{o}"] = all(
+                            torch.equal(a_, b_) for a_, b_ in zip(out1, out2))
+                        if not rec[f"bit_identical_{o}"] or \
+                                not err <= KERNEL_REL_TOL * max(1.0, scale):
+                            raise RuntimeError(f"{name} at {o} order: {rec}")
+                        outs[o] = out1
+                # the node rows of the RCM answer are the mesh answer's
+                # permuted (dh last for the backward); weights' alike
+                node = [outs["mesh"][-1][idx], outs["rcm"][-1]]
+                pairs = list(zip(outs["mesh"][:-1], outs["rcm"][:-1])) + [
+                    tuple(node)]
+                cross = max(float((a_ - b_).abs().max()) for a_, b_ in pairs)
+                scale = max(float(a_.abs().max()) for a_, _ in pairs)
+                rec["order_abs_diff"] = cross
+                if not cross <= KERNEL_REL_TOL * max(1.0, scale):
+                    raise RuntimeError(f"{name}: the orders disagree: {rec}")
+                if direction == "to":
+                    times = {"mesh": [], "rcm": []}
+                    for o in ("mesh", "rcm", "rcm", "mesh"):
+                        times[o].append(kernel_device_ms(
+                            lambda a=args[o]: kernel(*a))[0])
+                    bound_ms, bound_by, nbytes, _ = bound(
+                        graph.total_nodes, csrs["mesh"].n_edges, WIDTH,
+                        WIDTH, WIDTH, 3)
+                    rec.update(card=smi, device_ms=times,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               bytes=nbytes,
+                               bound_share={o: bound_ms / min(t)
+                                            for o, t in times.items()},
+                               rcm_over_mesh=min(times["rcm"])
+                               / min(times["mesh"]))
+                emit("order_kernel", **rec)
+                rows.append(rec)
+    return rows
+
+
+def order_request(device) -> dict:
+    """The trained Dirichlet Ψ-GNN (CKPT at CMP_OVERRIDES) on the
+    radius-5 sweep mesh in mesh and in RCM order, through
+    ``load_predictor``: each nstep printed (Broyden's stop is chaotic, so
+    it is not compared); the RCM answer, un-permuted, against the
+    mesh-order one by physics residual (RES_REL_TOL) and by the first
+    ``NSTEP_EARLY_STEPS`` decoded Broyden iterates (NSTEP_EARLY_RTOL in
+    ‖·‖₂ relative).  Returns each order's (forward, backward) launches."""
+    from psignn_tpu_torch.data.meshgen import blob_mesh
+    from psignn_tpu_torch.eval.metrics import errors_batch
+    from psignn_tpu_torch.eval.run_eval import load_predictor
+    from psignn_tpu_torch.eval.sweep import build_data
+    from psignn_tpu_torch.graphs import batch_graphs
+    from psignn_tpu_torch.models import psignn_iterative_inference
+    rng = np.random.default_rng(0)
+    for r in SWEEP_RADII:
+        mesh = blob_mesh(radius=r, hsize=0.08, rng=rng)
+        sample = build_data(mesh, r, rng, ("psignn",))["psignn"]
+        if r == ORDER_RADIUS:
+            break
+    (rsample,), perm = node_orders([sample])
+    idx = torch.as_tensor(perm, device=device)
+    graphs = {"mesh": batch_graphs([sample], device=device),
+              "rcm": batch_graphs([rsample], device=device)}
+    cfg, answer = counted_predictor(CKPT, device, CMP_OVERRIDES)
+    _, _, early_cfg, model = load_predictor(
+        CKPT, device, dict(CMP_OVERRIDES, fw_thres=NSTEP_EARLY_STEPS,
+                           fw_tol=1e-12))
+    rec, us, traces, launches = dict(radius=ORDER_RADIUS,
+                                     overrides=CMP_OVERRIDES), {}, {}, {}
+    for o, g in graphs.items():
+        out, r = answer(g)
+        m = errors_batch(out.u, g)
+        rec[o] = dict(r, res=float(m["res"][0]), mse=float(m["mse"][0]),
+                      bandwidth=bandwidth(g))
+        us[o] = out.u
+        traces[o] = psignn_iterative_inference(
+            model, g, early_cfg)["trace"]["u"][:NSTEP_EARLY_STEPS + 1]
+        launches["order_request_" + o] = (r["fwd_launches"],
+                                          r["bwd_launches"])
+        if (not finite(rec[o]["res"], rec[o]["mse"]) or r["prot_break"]
+                or r["fwd_launches"] != mp_per_call(cfg) * r["f_calls"]):
+            raise RuntimeError(f"order request at {o} order failed: {rec}")
+    res_rel = abs(rec["rcm"]["res"] - rec["mesh"]["res"]) / rec["mesh"]["res"]
+    early = max(float(torch.linalg.vector_norm(a[idx] - b)
+                      / torch.linalg.vector_norm(b))
+                for a, b in zip(traces["mesh"], traces["rcm"]))
+    u_gap = float(torch.linalg.vector_norm(us["mesh"][idx] - us["rcm"])
+                  / torch.linalg.vector_norm(us["mesh"]))
+    rec.update(res_rel_diff=res_rel, res_rtol=RES_REL_TOL,
+               early_steps=NSTEP_EARLY_STEPS, early_gap=early,
+               early_rtol=NSTEP_EARLY_RTOL, u_rel_diff=u_gap)
+    emit("order_request", **rec)
+    if res_rel > RES_REL_TOL or early > NSTEP_EARLY_RTOL:
+        raise RuntimeError(f"the two orders' answers disagree: {rec}")
+    return launches
+
+
+def graph_tensors(graph) -> dict:
+    """{name: tensor} of every tensor of a batch, its CSR packings' as
+    ``mp_to.<field>`` and ``mp_from.<field>``."""
+    import dataclasses
+
+    from psignn_tpu_torch.kernels.fused_mp import MPCsr
+    out = {}
+    for f in dataclasses.fields(graph):
+        v = getattr(graph, f.name)
+        if isinstance(v, torch.Tensor):
+            out[f.name] = v
+        elif isinstance(v, MPCsr):
+            out.update({f"{f.name}.{c.name}": getattr(v, c.name)
+                        for c in dataclasses.fields(v)})
+    return out
+
+
+def graph_nbytes(graph) -> int:
+    """Bytes a batch holds on its device (``mp_from`` holds ``mp_to``'s
+    tensors, swapped)."""
+    return sum(t.numel() * t.element_size()
+               for k, t in graph_tensors(graph).items()
+               if not k.startswith("mp_from."))
+
+
+def sample_ids(graph, index: dict) -> tuple:
+    """The loader indices of a batch's samples, in order, each found by
+    the bytes of its own ``sol`` rows."""
+    sol = graph.sol.cpu().numpy()
+    ends = np.cumsum(graph.n_nodes.cpu().numpy())
+    return tuple(index[part.tobytes()]
+                 for part in np.split(sol, ends[:-1]))
+
+
+def order_cli(device, graphs: dict) -> dict:
+    """The Ψ-GNN mixed protocol (``scripts/torch/train_psignn_mixed.sh``,
+    ``--pallas --cache_batches 1``) for one epoch on a fresh 3 × 4 mixed
+    dataset at batch 3, then resumed for a second, in this process, the
+    trainer's ``prefetch`` recorded: every batch a loader yields is one of
+    its stored graphs; the resumed epoch's batches hold the first epoch's
+    sample sets; every stored tensor is bit-equal after the steps to its
+    copy taken before them; ``max_memory_allocated`` once the train cache
+    is built.  The cache's bytes beside their reckoning for the canonical
+    dataset from ``graphs`` ({variant: 50-mesh batch}).  Returns each
+    run's (forward, backward) launches."""
+    from psignn_tpu_torch.cli.main import main as train_main
+    from psignn_tpu_torch.data.generate import generate_data
+    from psignn_tpu_torch.data.reader import load_dataset
+    from psignn_tpu_torch.kernels import fused_mp as mp
+    from psignn_tpu_torch.train import trainer as trainer_mod
+    root = os.path.join(".chipwork", "smoke_order")
+    shutil.rmtree(root, ignore_errors=True)
+    data, out = os.path.join(root, "data"), os.path.join(root, "run")
+    generate_data(data, variant="mixed", verbose=False, **ORDER_DATA)
+    (cmd,) = script_commands(os.path.join(SCRIPTS, "train_psignn_mixed.sh"),
+                             dict(DATA=data, OUT=out))
+    flags = [a for a in cmd["argv"] if a in ("--pallas", "--cache_batches")]
+    mesh_bandwidth = max(int(np.abs(s["senders"] - s["receivers"]).max())
+                         for s in load_dataset(data, variant="mixed"))
+    argv = cmd["argv"] + ["--batch_size", ORDER_BATCH, "--device",
+                          str(device)]
+    real = trainer_mod.prefetch
+    launches, runs = {}, []
+    for run, extra in (("first", ["--max_epochs", "1"]),
+                       ("resumed", ["--max_epochs", "2", "--resume",
+                                    os.path.join(out, "ckpt",
+                                                 "running_model.ckpt")])):
+        seen, state = [], {}
+
+        def recording(loader, depth=2):
+            for g in real(loader, depth):
+                if id(loader) not in state:     # the cache was just built
+                    sync(device)
+                    state[id(loader)] = dict(
+                        loader=loader, peak=torch.cuda.max_memory_allocated(),
+                        copy=[{k: t.clone()
+                               for k, t in graph_tensors(c).items()}
+                              for c in loader._cached])
+                seen.append((id(loader), g))
+                yield g
+
+        trainer_mod.prefetch = recording
+        torch.cuda.reset_peak_memory_stats()
+        sync(device)
+        mp.LAUNCHES = mp.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            captured(train_main, argv + extra)
+        finally:
+            trainer_mod.prefetch = real
+        sync(device)
+        launches["order_cli_" + run] = (mp.LAUNCHES, mp.BWD_LAUNCHES)
+        loaders = [s["loader"] for s in state.values()]
+        train = next(ld for ld in loaders if ld.shuffle)
+        index = {s["sol"].tobytes(): i for i, s in enumerate(train.samples)}
+        stored = {id(ld): {id(c) for c in ld._cached} for ld in loaders}
+        changed = [k for s in state.values()
+                   for c, copy in zip(s["loader"]._cached, s["copy"])
+                   for k, t in graph_tensors(c).items()
+                   if not torch.equal(t, copy[k])]
+        rec = dict(run=run, flags=flags, seconds=time.perf_counter() - t0,
+                   fwd_launches=mp.LAUNCHES, bwd_launches=mp.BWD_LAUNCHES,
+                   rcm=all(ld.rcm for ld in loaders),
+                   cached=all(ld.cache_batches for ld in loaders),
+                   yielded_stored=all(id(g) in stored[lid]
+                                      for lid, g in seen),
+                   batches=[sample_ids(g, index) for lid, g in seen
+                            if lid == id(train)],
+                   changed_tensors=changed,
+                   cache_bytes={("train" if ld.shuffle else "val"):
+                                sum(graph_nbytes(c) for c in ld._cached)
+                                for ld in loaders},
+                   peak_after_train_cache=state[id(train)]["peak"],
+                   bandwidth=max(bandwidth(c) for c in train._cached),
+                   mesh_bandwidth=mesh_bandwidth)
+        emit("order_cli", **rec)
+        runs.append(rec)
+        if (rec["changed_tensors"] or not rec["yielded_stored"]
+                or not (rec["rcm"] and rec["cached"])
+                or sorted(flags) != ["--cache_batches", "--pallas"]
+                or 0 in launches["order_cli_" + run]
+                or not rec["bandwidth"] < rec["mesh_bandwidth"]):
+            raise RuntimeError(f"order CLI run {run} failed: {rec}")
+    first, second = (sorted(tuple(sorted(b)) for b in r["batches"])
+                     for r in runs)
+    per_sample = {v: graph_nbytes(g) / g.num_graphs
+                  for v, g in graphs.items()}
+    frozen = dict(first=runs[0]["batches"], resumed=runs[1]["batches"],
+                  same_sets=first == second, n_batches=len(first),
+                  reckoned_canonical_cache_bytes={
+                      v: b * CANONICAL_SAMPLES * CANONICAL_CACHED
+                      for v, b in per_sample.items()},
+                  bytes_per_sample=per_sample)
+    emit("order_cache", **frozen)
+    if not frozen["same_sets"] or len(first) < 2:
+        raise RuntimeError(f"the resumed epoch re-dealt the batches: "
+                           f"{frozen}")
+    return launches
+
+
+def phase_order(graph, sample, tgraph, tsamples, mgraph, device,
+                smi: str) -> dict:
+    """The node orders JAX's fused kernels run in (``--rcm``/``--pallas``,
+    the bench's default) and ``--cache_batches``: the three kernels at
+    both orders on the headline mesh and the 50-mesh train batch, a
+    trained request at both orders, and a CLI epoch with the mixed
+    protocol's flags, resumed.  Returns each path's launches."""
+    from psignn_tpu_torch.graphs import batch_graphs
+    meshes = {}
+    for name, g, samples in (("headline", graph, [sample]),
+                             ("train", tgraph, tsamples)):
+        ordered, perm = node_orders(samples)
+        meshes[name] = (g, batch_graphs(ordered, device=device), perm)
+    order_kernels(meshes, device, smi)
+    launches = order_request(device)
+    launches.update(order_cli(device, {"dirichlet": tgraph,
+                                       "mixed": mgraph}))
     return launches
 
 
@@ -3697,6 +4059,9 @@ def main() -> None:
     nstep = timed("nstep_study", phase_nstep_study, device)
     figures = timed("figures", phase_figures, device, smi)
     operations = timed("operations", phase_operations, device)
+    ordered = timed("order", phase_order, graph, sample, tgraph,
+                    built_samples[("psignn", "dirichlet")], mgraph, device,
+                    smi)
     emit("seconds", **seconds)
     # each path's launches, counted from 0 just before it ran
     fwd["launches_by_path"] = dict(
@@ -3706,10 +4071,12 @@ def main() -> None:
         **{"trainer_" + run: n[0] for run, n in trainer.items()},
         **parity, nstep_study=nstep, **figures,
         **{path: n[0] for path, n in operations.items()},
-        **{path: n[0] for path, n in benched.items()})
+        **{path: n[0] for path, n in benched.items()},
+        **{path: n[0] for path, n in ordered.items()})
     bwd["launches_by_path"] = dict(
         train_step=bwd["launches"], stacked_train_step=stacked[1],
         **{path: n[1] for path, n in benched.items() if n[1]},
+        **{path: n[1] for path, n in ordered.items() if n[1]},
         **{path: n[1] for path, n in dist.items() if n[1]},
         **{"trainer_" + run: n[1] for run, n in trainer.items()},
         **{path: n[1] for path, n in operations.items() if n[1]},

@@ -25,15 +25,20 @@ Three modes, each ``bench.py``'s workload and JSON line:
   default every local card): NCCL with rank r on ``cuda:r``, or gloo with
   every rank on ``--device cuda:K`` or on the CPU.
 
-The hand-written CUDA kernels are the only card path (there is no
-counterpart of ``PSIGNN_TPU_BENCH_PALLAS``).  Without CUDA the bench
-raises unless ``--device cpu`` is given (the tests; gloo ranks on the CPU
-take the place of ``PSIGNN_TPU_BENCH_CPU8``).  The port's trainers are
-paused around the run (``pause_trainers``).
+The inference and train modes put each mesh's nodes in reverse
+Cuthill-McKee order, as ``bench.py`` does by default
+(``PSIGNN_TPU_BENCH_PALLAS`` unset or ``1``; ``bench.py:99-104, 136-141,
+284``); ``PSIGNN_TPU_BENCH_PALLAS`` set to anything else gives the mesh
+order.  The variable selects the order only: the hand-written CUDA
+kernels are the card's one route.  Without CUDA the bench raises unless
+``--device cpu`` is given (the tests; gloo ranks on the CPU take the
+place of ``PSIGNN_TPU_BENCH_CPU8``).  The port's trainers are paused
+around the run (``pause_trainers``).
 
 stdout carries exactly one line, the JSON object ``{"metric", "value",
 "unit", "vs_baseline", "detail"}``; everything else goes to stderr.
-``detail`` holds ``bench.py``'s keys (but ``pallas_mp``) and:
+``detail`` holds ``bench.py``'s keys (but ``pallas_mp``) and: ``rcm``
+(inference, train) — whether the meshes were in RCM order;
 ``launches`` — each kernel's launches in the timed run (the last of the
 best-of reps; partition: summed over the ranks); ``device_s`` — the
 device's kernel time in one profiled run after the timed ones (partition:
@@ -59,6 +64,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .dist.partition import rcm_ordered
 
 # The reference's numbers on Turing GPUs (BASELINE.md).  Inference: its
 # radius-5 sweep runs 531.2 Broyden iterations over ~77,588 edges in
@@ -100,13 +106,22 @@ def headline_sample(radius: float = 5.0, hsize: float = 0.08,
     return psignn_sample_from_fem(solve_poisson(mesh, radius, rng))
 
 
+def bench_rcm() -> bool:
+    """The order ``bench.py`` reads from ``PSIGNN_TPU_BENCH_PALLAS``: RCM
+    unless it is set to anything but ``1`` (``bench.py:284``)."""
+    return os.environ.get("PSIGNN_TPU_BENCH_PALLAS", "1") == "1"
+
+
 def build_big_graph(radius: float = 5.0, hsize: float = 0.08, seed: int = 0,
-                    device=None):
-    """(graph, sample, n_nodes, n_edges) of the headline mesh, in its
-    mesh order (no RCM: the port's CSR kernels need no window bound);
-    ``n_edges`` counts the COO entries of A, the diagonal included."""
+                    device=None, rcm: bool = False):
+    """(graph, sample, n_nodes, n_edges) of the headline mesh, in reverse
+    Cuthill-McKee order with ``rcm`` (``bench.py:99-104``), else in its
+    mesh order; ``n_edges`` counts the COO entries of A, the diagonal
+    included."""
     from .graphs import batch_graphs
     sample = headline_sample(radius, hsize, seed)
+    if rcm:
+        sample = rcm_ordered(sample)
     graph = batch_graphs([sample], device=device)
     return (graph, sample, int(sample["x"].shape[0]),
             int(sample["senders"].shape[0]))
@@ -134,18 +149,14 @@ def train_samples(n_meshes: int = TRAIN_MESHES, seed: int = 0,
 
 
 def train_batch(n_meshes: int = TRAIN_MESHES, seed: int = 0,
-                hsize: float = 0.08, device=None):
-    """The train mode's batch: ``train_samples`` in one graph."""
+                hsize: float = 0.08, device=None, rcm: bool = False):
+    """The train mode's batch: ``train_samples`` in one graph, each sample
+    in reverse Cuthill-McKee order with ``rcm`` (``bench.py:136-141``)."""
     from .graphs import batch_graphs
-    return batch_graphs(train_samples(n_meshes, seed, hsize), device=device)
-
-
-def rcm_ordered(sample: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """``sample`` with its nodes in reverse Cuthill-McKee order (the
-    partition's halo is then O(√N))."""
-    from .dist.partition import apply_node_permutation, rcm_permutation
-    return apply_node_permutation(sample, rcm_permutation(
-        sample["senders"], sample["receivers"], sample["x"].shape[0]))
+    samples = train_samples(n_meshes, seed, hsize)
+    if rcm:
+        samples = [rcm_ordered(s) for s in samples]
+    return batch_graphs(samples, device=device)
 
 
 def headline_config(iters: int = HEADLINE_ITERS):
@@ -282,13 +293,15 @@ def card_line(device) -> Optional[str]:
 # ----------------------------------------------------------------- modes
 
 def inference(device, iters: int = HEADLINE_ITERS, radius: float = 5.0,
-              hsize: float = 0.08, model=None, reps: int = REPS):
+              hsize: float = 0.08, model=None, reps: int = REPS,
+              rcm: Optional[bool] = None):
     """(line, SolverResult of the last rep): the headline solve; ``model``
-    defaults to ``headline_model``."""
+    defaults to ``headline_model``, ``rcm`` to ``bench_rcm()``."""
     device = torch.device(device)
+    rcm = bench_rcm() if rcm is None else rcm
     t0 = time.perf_counter()
     graph, _, n_nodes, n_edges = build_big_graph(radius, hsize,
-                                                 device=device)
+                                                 device=device, rcm=rcm)
     cfg = headline_config(iters)
     model = model if model is not None else headline_model(cfg, device)
     _log(f"mesh and model {time.perf_counter() - t0:.1f} s")
@@ -310,7 +323,7 @@ def inference(device, iters: int = HEADLINE_ITERS, radius: float = 5.0,
         "vs_baseline": round(edges_per_s / REF_EDGES_PER_S, 3),
         "detail": {
             "n_nodes": n_nodes, "n_edges": n_edges, "iters": done,
-            "wall_s": round(dt, 4), "solver": "broyden",
+            "wall_s": round(dt, 4), "solver": "broyden", "rcm": rcm,
             "baseline_edges_per_s": round(REF_EDGES_PER_S, 1),
             "launches": launches[-1], "device_s": device_s,
             "busy": _busy(device_s, dt), "card": card_line(device),
@@ -319,11 +332,13 @@ def inference(device, iters: int = HEADLINE_ITERS, radius: float = 5.0,
 
 
 def train(device, n_meshes: int = TRAIN_MESHES, hsize: float = 0.08,
-          ckpt: str = CKPT, reps: int = REPS):
-    """(line, StepResults of the reps): the train step."""
+          ckpt: str = CKPT, reps: int = REPS, rcm: Optional[bool] = None):
+    """(line, StepResults of the reps): the train step; ``rcm`` defaults
+    to ``bench_rcm()``."""
     device = torch.device(device)
+    rcm = bench_rcm() if rcm is None else rcm
     t0 = time.perf_counter()
-    graph = train_batch(n_meshes, hsize=hsize, device=device)
+    graph = train_batch(n_meshes, hsize=hsize, device=device, rcm=rcm)
     model, cfg, init = trained_model(device, TRAIN_OVERRIDES, ckpt)
     _log(f"meshes and model {time.perf_counter() - t0:.1f} s")
     _warm_up(lambda: step_from(model, cfg, init, graph, WARMUP_SEED),
@@ -352,7 +367,7 @@ def train(device, n_meshes: int = TRAIN_MESHES, hsize: float = 0.08,
             "n_edges": int(graph.senders.shape[0]),
             "fw_nstep": int(res.fw.nstep), "loss": float(res.loss),
             "epoch_s_extrapolated": round(step_s * EPOCH_STEPS, 1),
-            "baseline_step_s": REF_TRAIN_STEP_S,
+            "baseline_step_s": REF_TRAIN_STEP_S, "rcm": rcm,
             "launches": launches[-1], "device_s": device_s,
             "busy": _busy(device_s, step_s), "card": card_line(device),
             "ckpt": ckpt, "steps": steps,

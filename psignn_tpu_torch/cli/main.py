@@ -20,9 +20,14 @@ JAX's float32 parameters make it); ``--resume`` takes a checkpoint of the
 port or of the JAX trainer.  ``--num_devices`` trains data-parallel
 (every family), ``--solver newton|newton_krylov`` solves the DEQ's forward
 and adjoint systems by Newton's method (DS-GPS and DSS ignore ``--solver``,
-as in JAX); the TPU-only ``--rcm``, ``--pallas`` and ``--cache_batches``
-are not flags here.  ``--device`` picks the torch device (default: cuda).  The
-mixed variant's split is shuffled by ``--seed``.
+as in JAX).  ``--rcm`` puts each sample's nodes in reverse Cuthill-McKee
+order, and ``--pallas`` implies it (the hand-written kernels are the port's
+only card route, so it selects nothing else); ``--cache_batches 1`` builds
+every batch once and keeps it on the device, its membership frozen after
+the first shuffle (``data.reader.GraphLoader``); ``--comment`` is accepted
+and unused, as in JAX.  Checkpoints do not record these four.
+``--device`` picks the torch device (default: cuda).  The mixed variant's
+split is shuffled by ``--seed``.
 
 A run without ``--resume`` starts afresh: it deletes the ``ckpt/``,
 ``logs/``, ``trainer.pid`` and ``relaunch.cmd`` an earlier run left in
@@ -61,6 +66,7 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--path_dataset", type=str, default="dataset/")
     p.add_argument("--path_results", type=str,
                    default="results/psignn_torch_run/")
+    p.add_argument("--comment", type=str, default="")
     p.add_argument("--resume", type=str, default="",
                    help="checkpoint path to resume from (one the port or the "
                         "JAX trainer wrote)")
@@ -117,6 +123,16 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--lowrank_max_rank", type=int, default=0,
                    help="> 0: keep only the newest pairs of Broyden's rank "
                         "memory (rounded up to blocks of 128)")
+    # node order and device-resident batches
+    p.add_argument("--rcm", action="store_true",
+                   help="RCM-permute each sample's nodes")
+    p.add_argument("--pallas", action="store_true",
+                   help="the JAX package's fused-kernel switch: implies "
+                        "--rcm (the CUDA kernels are always the card's "
+                        "route)")
+    p.add_argument("--cache_batches", type=int, default=0,
+                   help="build every batch once and keep it on the device "
+                        "(epochs reshuffle batch order, not membership)")
     p.add_argument("--stacked_batch", action="store_true",
                    help="Ψ-GNN: one DEQ solve per mesh of a batch, each "
                         "stopping at its own tolerance")
@@ -365,12 +381,12 @@ def build_loaders(args, device, n_devices: int = 1, rank: int = 0):
                            precision=args.precision)
     train, val, _ = split_dataset(samples, family=args.family,
                                   variant=args.variant, seed=args.seed)
-    stacked = args.stacked_batch and args.family == "psignn"
-    return (GraphLoader(train, batch_size=args.batch_size, shuffle=True,
-                        seed=args.seed, device=device, stacked=stacked,
-                        **shard),
-            GraphLoader(val, batch_size=args.batch_size, device=device,
-                        stacked=stacked, **shard))
+    common = dict(batch_size=args.batch_size, device=device,
+                  stacked=args.stacked_batch and args.family == "psignn",
+                  rcm=args.rcm or args.pallas,
+                  cache_batches=bool(args.cache_batches), **shard)
+    return (GraphLoader(train, shuffle=True, seed=args.seed, **common),
+            GraphLoader(val, **common))
 
 
 def _train(p: Optional[argparse.ArgumentParser], args, plan: RankPlan,

@@ -27,6 +27,9 @@ samples, carried as float32 (``_caster``).  ``n_devices`` > 1 with
 ``rank`` gives one data-parallel rank its shard of every batch, dealt as
 the JAX loader's ``_build_sharded`` deals it (``shard_samples``): every
 rank shuffles with the same seed and rank d's shard is JAX's shard d.
+``rcm`` (each sample in reverse Cuthill-McKee order) and
+``cache_batches`` (every batch built once, kept on the device, its
+membership frozen) are the JAX loader's options of the same names.
 """
 
 from __future__ import annotations
@@ -327,7 +330,17 @@ class GraphLoader:
     (batches for per-graph solves), a short last batch is filled up to
     ``batch_size`` graphs by repeating its own samples cyclically.  With
     ``n_devices`` > 1, each batch is rank ``rank``'s shard of it
-    (``shard_samples``)."""
+    (``shard_samples``).
+
+    As the JAX loader does (``reader.py:269-334``): ``rcm`` puts each
+    sample's nodes in reverse Cuthill-McKee order once, at construction
+    (``dist.partition.rcm_ordered``); ``cache_batches`` builds the batches
+    of epoch 0 (shuffle seed ``seed``) on ``device`` at the first
+    ``__iter__`` and keeps them, so batch membership is frozen after the
+    first shuffle: epoch 0 yields them in build order, epoch k > 0 in the
+    order of ``np.random.RandomState(seed + k).shuffle``.  Every epoch
+    yields the stored graphs themselves; no batch is built or copied
+    again."""
 
     samples: List[GraphSample]
     batch_size: int = 50
@@ -338,24 +351,31 @@ class GraphLoader:
     stacked: bool = False
     n_devices: int = 0
     rank: int = 0
+    rcm: bool = False
+    cache_batches: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self._epoch = 0
+        self._cached: Optional[List[Graph]] = None
         if self.n_devices > 1 and self.stacked:
             raise ValueError("stacked batches are not dealt over ranks "
                              "(JAX refuses --stacked_batch with data "
                              "parallelism)")
         if self.n_devices > 1 and not 0 <= self.rank < self.n_devices:
             raise ValueError(f"rank {self.rank} of {self.n_devices}")
+        if self.rcm:
+            from ..dist.partition import rcm_ordered
+            self.samples = [rcm_ordered(s) for s in self.samples]
 
     def __len__(self):
         n = len(self.samples)
         return (n // self.batch_size if self.drop_last
                 else -(-n // self.batch_size))
 
-    def batch_order(self, epoch: int) -> List[np.ndarray]:
-        """The sample indices of each batch of epoch ``epoch``."""
+    def _deal(self, epoch: int) -> List[np.ndarray]:
+        """The sample indices of each batch dealt by epoch ``epoch``'s
+        shuffle."""
         order = np.arange(len(self.samples))
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(order)
@@ -368,15 +388,38 @@ class GraphLoader:
             out[-1] = last[np.arange(self.batch_size) % len(last)]
         return out
 
+    def _cache_order(self, epoch: int, n: int) -> np.ndarray:
+        """The order epoch ``epoch`` yields ``n`` cached batches in."""
+        order = np.arange(n)
+        if self.shuffle and epoch > 0:
+            np.random.RandomState(self.seed + epoch).shuffle(order)
+        return order
+
+    def batch_order(self, epoch: int) -> List[np.ndarray]:
+        """The sample indices of each batch epoch ``epoch`` yields."""
+        if not self.cache_batches:
+            return self._deal(epoch)
+        dealt = self._deal(0)
+        return [dealt[i] for i in self._cache_order(epoch, len(dealt))]
+
+    def _build(self, sel: np.ndarray) -> Graph:
+        chunk = [self.samples[j] for j in sel]
+        if self.n_devices > 1:
+            chunk = shard_samples(chunk, self.batch_size,
+                                  self.n_devices)[self.rank]
+        return batch_graphs(chunk, device=self.device)
+
     def __iter__(self) -> Iterator[Graph]:
         epoch = self._epoch
         self._epoch += 1
-        for sel in self.batch_order(epoch):
-            chunk = [self.samples[j] for j in sel]
-            if self.n_devices > 1:
-                chunk = shard_samples(chunk, self.batch_size,
-                                      self.n_devices)[self.rank]
-            yield batch_graphs(chunk, device=self.device)
+        if not self.cache_batches:
+            for sel in self._deal(epoch):
+                yield self._build(sel)
+            return
+        if self._cached is None:
+            self._cached = [self._build(sel) for sel in self._deal(0)]
+        for i in self._cache_order(epoch, len(self._cached)):
+            yield self._cached[i]
 
 
 def prefetch(iterable, depth: int = 2):

@@ -50,12 +50,6 @@ def _samples(n: int, hsize: float, seed: int, one_mesh: bool = False
         for _ in range(n)]
 
 
-def _rcm(sample: dict) -> dict:
-    from .partition import apply_node_permutation, rcm_permutation
-    return apply_node_permutation(sample, rcm_permutation(
-        sample["senders"], sample["receivers"], sample["x"].shape[0]))
-
-
 def dryrun_multichip(device=None, n_parts=None) -> Dict[str, float]:
     """Every multi-device path once on this rank of an initialised world;
     ``device`` is the rank's device, ``n_parts`` the partition of step 4's
@@ -68,7 +62,7 @@ def dryrun_multichip(device=None, n_parts=None) -> Dict[str, float]:
     from . import (make_mesh, make_partitioned_train_step,
                    partition_message_passing, partitioned_psignn_inference,
                    stack_graphs, stack_partitioned_graphs)
-    from .partition import pad_edges_for_sharding
+    from .partition import pad_edges_for_sharding, rcm_ordered
     device = resolve_device(device)
     n = multihost.world_size()
     cfg = PsignnConfig(**DRYRUN_CFG)
@@ -105,7 +99,7 @@ def dryrun_multichip(device=None, n_parts=None) -> Dict[str, float]:
     mp_err = float((got - want).abs().max())
 
     # 3. one mesh partitioned over every rank, against one process
-    s = _rcm(_samples(1, 0.12, 5)[0])
+    s = rcm_ordered(_samples(1, 0.12, 5)[0])
     pg = stack_partitioned_graphs([s], row)
     inf = partitioned_psignn_inference(model(), pg, cfg, row)
     part = _against_one_process(inf, model(), s, cfg, pg, row.rank, device)
@@ -114,7 +108,7 @@ def dryrun_multichip(device=None, n_parts=None) -> Dict[str, float]:
     dp = 2 if n >= 4 else 1
     parts = n_parts or n // dp
     grid = multihost.global_mesh(dp, parts, device)
-    rows = [_rcm(s) for s in _samples(dp, 0.35, 7, one_mesh=True)]
+    rows = [rcm_ordered(s) for s in _samples(dp, 0.35, 7, one_mesh=True)]
     m = model()
     pres = make_partitioned_train_step(cfg, grid, clip=0.1)(
         m, make_optimizers(m, 0.01, 0.05), stack_partitioned_graphs(rows,

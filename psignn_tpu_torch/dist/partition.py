@@ -70,6 +70,14 @@ def apply_node_permutation(sample: Dict[str, np.ndarray],
     return out
 
 
+def rcm_ordered(sample: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``sample`` with its nodes in reverse Cuthill-McKee order, as JAX
+    puts each sample in that order before its fused kernels
+    (``reader.py:288-295``, ``bench.py:99-104``)."""
+    return apply_node_permutation(sample, rcm_permutation(
+        sample["senders"], sample["receivers"], sample["x"].shape[0]))
+
+
 # ------------------------------------------------------- edge-sharded ops
 
 def pad_edges_for_sharding(arrs: dict, n_devices: int) -> dict:

@@ -11,9 +11,9 @@ identical solver settings, answers several right-hand sides on each of
 * three radius-1 blob meshes and one circle mesh of ``data.meshgen``,
 
 so a gap between this generator's nstep and the published per-radius
-means (35 / 67.2) can be told apart from the model and the solver.  JAX's
-RCM reordering for its TPU kernels has no counterpart here: ``--pallas``
-is accepted and ignored.  The report goes to
+means (35 / 67.2) can be told apart from the model and the solver.
+``--pallas 1`` answers every sample in reverse Cuthill-McKee node order,
+as JAX's does (default 0: mesh order).  The report goes to
 ``results/eval/nstep_gap_torch.md`` by default, not to JAX's
 ``docs/nstep_gap.md``, which is the JAX package's record.
 
@@ -43,13 +43,15 @@ REF_MESHES = {
 
 
 def eval_mesh(predict, mesh, radius: float, n_samples: int, seed: int,
-              device=None):
+              device=None, pallas: bool = False):
     """Mean nstep / lowest / MSE / a_ij std over ``n_samples`` right-hand
     sides drawn from ``np.random.default_rng(seed)`` on one fixed mesh,
     each answered on ``device`` (default: the card) by ``predict``, a
-    Ψ-GNN predictor returning ``psignn_inference``'s tuple."""
+    Ψ-GNN predictor returning ``psignn_inference``'s tuple; with
+    ``pallas``, in reverse Cuthill-McKee node order."""
     from ..data.fem import solve_poisson
     from ..data.reader import psignn_sample_from_fem
+    from ..dist.partition import rcm_ordered
     from ..graphs import batch_graphs
     from .metrics import errors_batch
 
@@ -58,6 +60,8 @@ def eval_mesh(predict, mesh, radius: float, n_samples: int, seed: int,
     rows = []
     for _ in range(n_samples):
         s = psignn_sample_from_fem(solve_poisson(mesh, radius, rng))
+        if pallas:
+            s = rcm_ordered(s)
         g = batch_graphs([s], device=device)
         u, nstep, lowest = predict(g)[:3]
         m = errors_batch(u, g)
@@ -70,26 +74,28 @@ def eval_mesh(predict, mesh, radius: float, n_samples: int, seed: int,
     return out
 
 
-def study(predict, n_samples: int = 8, device=None) -> dict:
+def study(predict, n_samples: int = 8, device=None,
+          pallas: bool = False) -> dict:
     """``eval_mesh`` on JAX ``main``'s meshes: each gmsh mesh of
     ``REF_MESHES`` that exists (seed 0), three radius-1 blob meshes of
     ``default_rng(1)`` (seeds 10–12) and ``circle_mesh(seed=3)`` (seed
-    20), all at hsize 0.08."""
+    20), all at hsize 0.08; in RCM node order with ``pallas``."""
     from ..data.meshgen import blob_mesh, circle_mesh, mesh_from_dolfin_h5
 
     results = {}
     for name, path in REF_MESHES.items():
         if os.path.exists(path):
             results[name] = eval_mesh(predict, mesh_from_dolfin_h5(path),
-                                      1.0, n_samples, seed=0, device=device)
+                                      1.0, n_samples, seed=0, device=device,
+                                      pallas=pallas)
     rng = np.random.default_rng(1)
     for i in range(3):
         results[f"ours_blob_r1_{i}"] = eval_mesh(
             predict, blob_mesh(radius=1.0, hsize=0.08, rng=rng), 1.0,
-            n_samples, seed=10 + i, device=device)
+            n_samples, seed=10 + i, device=device, pallas=pallas)
     results["ours_circle_r1"] = eval_mesh(
         predict, circle_mesh(radius=1.0, hsize=0.08, seed=3), 1.0,
-        n_samples, seed=20, device=device)
+        n_samples, seed=20, device=device, pallas=pallas)
     return results
 
 
@@ -101,7 +107,7 @@ def main(argv=None):
     p.add_argument("--out", type=str,
                    default="results/eval/nstep_gap_torch.md")
     p.add_argument("--pallas", type=int, default=0,
-                   help="the JAX package's TPU kernels switch: ignored")
+                   help="1: answer in RCM node order")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
@@ -112,7 +118,8 @@ def main(argv=None):
     if "psignn" not in preds:
         print("reference psignn checkpoint not found; skipping")
         return
-    results = study(preds["psignn"], args.n_samples, args.device)
+    results = study(preds["psignn"], args.n_samples, args.device,
+                    bool(args.pallas))
 
     lines = [
         "# nstep gap root-cause: reference gmsh meshes vs our generator",

@@ -15,8 +15,11 @@ checkpoint's: Broyden at ``fw_tol`` / ``fw_thres`` (the backward cap equal
 to the forward's), DS-GPS at k = 100, DSS at k = 30.  The sweep's CSVs go
 to ``--csv_dir``, with JAX's comparison figure ``radius_comparison.png``
 (``vis.plot_radius_comparison``; matplotlib, imported when it draws).
-``--pallas`` (TPU only) is accepted and ignored.  The report goes to ``results/eval/PARITY_torch.md`` by default,
-not to JAX's ``PARITY.md``, which is the JAX package's record.
+``--pallas`` puts the sweep's samples in reverse Cuthill-McKee node order
+(1 on, 0 off, -1 on for a card and off on the CPU, as JAX's default
+follows its backend); the report's protocol line says ``pallas=``.  The
+report goes to ``results/eval/PARITY_torch.md`` by default, not to JAX's
+``PARITY.md``, which is the JAX package's record.
 
     python -m psignn_tpu_torch.eval.parity
     python -m psignn_tpu_torch.eval.parity --device cpu --radii 0.6 \\
@@ -166,13 +169,16 @@ def main(argv=None):
     p.add_argument("--families", type=str, nargs="+",
                    default=["psignn", "dsgps", "dss"])
     p.add_argument("--pallas", type=int, default=-1,
-                   help="the JAX package's TPU kernels switch: ignored")
+                   help="1: RCM node order (default on a card), 0: mesh "
+                        "order (default on the CPU)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
     args = p.parse_args(argv)
 
+    from .run_eval import pallas_order
     from .sweep import growing_geometry_sweep
 
+    pallas = pallas_order(args.pallas, args.device)
     preds = build_predictors(args.fw_thres, args.fw_tol, device=args.device)
     preds = {k: v for k, v in preds.items() if k in args.families}
     if not preds:
@@ -184,7 +190,7 @@ def main(argv=None):
     summary = growing_geometry_sweep(preds, radii=args.radii,
                                      n_meshes=n_meshes, families=fams,
                                      out_dir=args.csv_dir or None,
-                                     device=args.device)
+                                     device=args.device, pallas=pallas)
     if args.csv_dir:
         from .vis import plot_radius_comparison
         plot_radius_comparison(args.csv_dir,
@@ -192,10 +198,11 @@ def main(argv=None):
                                             "radius_comparison.png"))
     proto = ("Protocol: radii {} with {} meshes per radius respectively "
              "(reference: tests/test_multiple.py, 3 meshes/radius), "
-             "fw_thres {}, fw_tol {}. Times are wall-clock seconds of one "
-             "request, synchronised with the device on both ends, after a "
-             "warm-up request.".format(args.radii, args.n_meshes,
-                                       args.fw_thres, args.fw_tol))
+             "fw_thres {}, fw_tol {}, pallas={}. Times are wall-clock "
+             "seconds of one request, synchronised with the device on both "
+             "ends, after a warm-up request.".format(
+                 args.radii, args.n_meshes, args.fw_thres, args.fw_tol,
+                 int(pallas)))
     path = write_report(summary, args.out, protocol=proto,
                         device=resolve_device(args.device))
     print("wrote", path)

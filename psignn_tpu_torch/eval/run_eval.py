@@ -22,7 +22,11 @@ dataset is named.  ``--sweep`` builds Dirichlet samples (2-column problem
 data, no normals; DSS's A′ form as well for a DSS checkpoint), so it takes
 a Dirichlet checkpoint only; so does ``--zoo``, which answers each of the
 12 shapes of ``geometries`` (hsize 0.08) and, with ``--out``, writes
-``geometry_zoo.json``.
+``geometry_zoo.json``.  ``--pallas`` puts the sweep's and the zoo's
+samples in reverse Cuthill-McKee node order, as JAX's switch of the same
+name does: 1 on, 0 off, -1 (default) on when the device is a card, off on
+the CPU, as JAX's default follows its backend.  The test-split table keeps
+the mesh order, as JAX's does.
 """
 
 from __future__ import annotations
@@ -71,9 +75,20 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--radii", type=float, nargs="+",
                    default=[0.6, 1.0, 2.0, 4.0, 5.0])
     p.add_argument("--n_meshes", type=int, default=3)
+    p.add_argument("--pallas", type=int, default=-1,
+                   help="1: RCM node order for --sweep and --zoo (default "
+                        "on a card), 0: mesh order (default on the CPU)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda)")
     return p
+
+
+def pallas_order(flag: int, device) -> bool:
+    """Whether ``--pallas flag`` asks for RCM order on ``device``: -1
+    follows the device, on for a card and off for the CPU (JAX
+    ``run_eval.py:71-72``)."""
+    return (resolve_device(device).type == "cuda" if flag < 0
+            else bool(flag))
 
 
 def main(argv=None):
@@ -84,6 +99,7 @@ def main(argv=None):
                 "and/or --zoo")
 
     predict, family, cfg, _ = load_predictor(args.ckpt, args.device)
+    pallas = pallas_order(args.pallas, args.device)
     mode = getattr(cfg, "bc_mode", "dirichlet")     # DSS: Dirichlet only
     if args.path_dataset is not None and mode != args.variant:
         p.error(f"the checkpoint is a {mode} model; its test split "
@@ -117,13 +133,14 @@ def main(argv=None):
         from .sweep import growing_geometry_sweep
         summary = growing_geometry_sweep(
             {family: predict}, radii=args.radii, n_meshes=args.n_meshes,
-            out_dir=args.out or None, device=args.device, families=forms)
+            out_dir=args.out or None, device=args.device, families=forms,
+            pallas=pallas)
         print(json.dumps(summary, indent=2, default=float))
 
     if args.zoo:
         from .sweep import geometry_zoo_eval
         zoo = geometry_zoo_eval({family: predict}, families=forms,
-                                device=args.device)
+                                device=args.device, pallas=pallas)
         print(json.dumps(zoo, indent=2, default=float))
         if args.out:
             os.makedirs(args.out, exist_ok=True)

@@ -34,12 +34,19 @@ SAMPLE_FORMS = {"psignn": psignn_sample_from_fem, "dss": dss_sample_from_fem}
 
 
 def build_data(mesh, radius: float, rng=None,
-               families: Sequence[str] = ("psignn", "dss")
-               ) -> Dict[str, dict]:
+               families: Sequence[str] = ("psignn", "dss"),
+               pallas: bool = False) -> Dict[str, dict]:
     """FEM-solve one mesh; ``{form: graph sample}`` for each sample form
-    in ``families`` (``psignn``, ``dss``)."""
+    in ``families`` (``psignn``, ``dss``), each in reverse Cuthill-McKee
+    node order with ``pallas`` (JAX ``sweep.py:28-46``; JAX's
+    ``_batch_for_eval`` also attaches its kernels' packings then, which
+    every port graph carries)."""
     s = solve_poisson(mesh, radius, rng)
-    return {f: SAMPLE_FORMS[f](s) for f in families}
+    out = {f: SAMPLE_FORMS[f](s) for f in families}
+    if pallas:
+        from ..dist.partition import rcm_ordered
+        out = {f: rcm_ordered(smp) for f, smp in out.items()}
+    return out
 
 
 def _timed(fn: Callable, graph: Graph):
@@ -82,12 +89,13 @@ def growing_geometry_sweep(
         radii: Sequence[float] = (0.6, 1.0, 2.0, 4.0, 5.0),
         n_meshes=3, hsize: float = 0.08, seed: int = 0,
         out_dir: Optional[str] = None, device=None, warmup: bool = True,
-        families: Sequence[str] = ("psignn", "dss")
+        families: Sequence[str] = ("psignn", "dss"), pallas: bool = False
         ) -> Dict[str, Dict[float, Dict[str, float]]]:
     """The radius sweep: ``n_meshes`` (an int, or one count per radius)
     fresh meshes per radius, every predictor on every mesh, means per
-    radius.  ``families`` are the sample forms built for each mesh.
-    Graphs go to ``device`` (default: ``default_device()``)."""
+    radius.  ``families`` are the sample forms built for each mesh, in
+    RCM node order with ``pallas``.  Graphs go to ``device`` (default:
+    ``default_device()``)."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     acc: Dict[str, Dict[float, List[Dict[str, float]]]] = {
@@ -100,7 +108,7 @@ def growing_geometry_sweep(
     for radius in radii:
         for _ in range(counts[radius]):
             mesh = blob_mesh(radius=radius, hsize=hsize, rng=rng)
-            data = build_data(mesh, radius, rng, families)
+            data = build_data(mesh, radius, rng, families, pallas)
             graphs = {k: batch_graphs([v], device=device)
                       for k, v in data.items()}
             for name, m in test_sample(predictors, graphs, warmup).items():
@@ -134,21 +142,21 @@ def growing_geometry_sweep(
 def geometry_zoo_eval(predictors: Dict[str, Callable], hsize: float = 0.08,
                       seed: int = 0, shapes: Optional[Sequence[str]] = None,
                       families: Sequence[str] = ("psignn",), device=None,
-                      warmup: bool = True
+                      warmup: bool = True, pallas: bool = False
                       ) -> Dict[str, Dict[str, Dict[str, float]]]:
     """Out-of-distribution generalisation over the geometry zoo (the
     reference's ``tests/special_geo`` studies): each shape of ``shapes``
     (default: all, sorted) meshed at ``hsize``, FEM-solved at radius 1
     with ``np.random.default_rng(seed)``'s numbers, and answered by every
-    predictor as ``test_sample`` answers it.  Returns ``{shape: {model:
-    metrics}}``."""
+    predictor as ``test_sample`` answers it, in RCM node order with
+    ``pallas``.  Returns ``{shape: {model: metrics}}``."""
     from .geometries import GEOMETRY_BUILDERS, build_geometry
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     results = {}
     for name in shapes or sorted(GEOMETRY_BUILDERS):
         data = build_data(build_geometry(name, hsize=hsize), 1.0, rng,
-                          families)
+                          families, pallas)
         graphs = {k: batch_graphs([v], device=device)
                   for k, v in data.items()}
         results[name] = test_sample(predictors, graphs, warmup)

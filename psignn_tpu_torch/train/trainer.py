@@ -30,7 +30,10 @@ one device with one concatenated batch per step:
 * both loops draw their batches through ``data.reader.prefetch``, as the
   JAX trainer's do (``trainer.py:345-346``, ``:385-388``): the next batch
   is packed and copied to the device while the step runs; each
-  data-parallel rank prefetches its own shard.
+  data-parallel rank prefetches its own shard.  Over a loader with
+  ``cache_batches`` the thread yields the loader's stored graphs: no
+  batch is built or copied again after the first epoch's, and no step
+  writes into a batch's tensors.
 
 * ``data_parallel``: one process a rank (``dist.multihost``; the CLI's
   ``--num_devices``), the loaders giving each rank its shard; the train

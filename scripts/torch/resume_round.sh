@@ -8,8 +8,9 @@
 # Regenerates missing datasets, then resumes every port training run under
 # results/torch/ that has a running_model.ckpt (and starts from scratch the
 # ones that do not), and starts the port's watchdog.  The flags are those
-# of scripts/resume_round.sh but the TPU-only --pallas and --cache_batches,
-# which the port's CLI does not have.
+# of scripts/resume_round.sh: --cache_batches 1 on every run keeps its
+# batches on the card (membership frozen after the first shuffle), and
+# --pallas puts the Ψ-GNN run's samples in RCM node order.
 set -e
 cd "$(dirname "$0")/../.."
 export PYTHONPATH="$(pwd)${PYTHONPATH:+:$PYTHONPATH}"
@@ -44,7 +45,7 @@ nohup "$PYTHON" -m psignn_tpu_torch.cli.main --family psignn --variant dirichlet
   --solver broyden --fw_tol 1e-5 --fw_thres 500 --bw_tol 1e-8 --bw_thres 500 \
   --latent_dim 10 --n_layers 1 --lr_deq 0.01 --lr_ae 0.05 \
   --sched_step_deq 0.5 --sched_step_ae 0.5 --gradient_clip 0.1 --jac_weight 1.0 \
-  --batch_size 50 --max_epochs 700 \
+  --batch_size 50 --max_epochs 700 --pallas --cache_batches 1 \
   $(resume_flag results/torch/psignn_dirichlet) \
   > logs/resume_torch/psignn.log 2>&1 &
 echo "psignn $!" > logs/resume_torch/pids.txt
@@ -52,7 +53,7 @@ echo "psignn $!" > logs/resume_torch/pids.txt
 nohup "$PYTHON" -m psignn_tpu_torch.cli.main --family dss --variant dirichlet \
   --path_dataset data/dirichlet --path_results results/torch/dss_dirichlet \
   --k 30 --alpha 1e-3 --gamma 0.9 --latent_dim 10 \
-  --lr 0.01 --gradient_clip 0.01 --batch_size 50 --max_epochs 400 \
+  --lr 0.01 --gradient_clip 0.01 --batch_size 50 --max_epochs 400 --cache_batches 1 \
   $(resume_flag results/torch/dss_dirichlet) \
   > logs/resume_torch/dss.log 2>&1 &
 echo "dss $!" >> logs/resume_torch/pids.txt
@@ -61,7 +62,7 @@ nohup "$PYTHON" -m psignn_tpu_torch.cli.main --family dsgps --variant dirichlet 
   --path_dataset data/dirichlet --path_results results/torch/dsgps_dirichlet \
   --k 30 --gamma 0.9 --latent_dim 10 --seed 7 --spike_guard \
   --lr "$(run_lr results/torch/dsgps_dirichlet 1e-3)" --gradient_clip 0.01 \
-  --batch_size 50 --max_epochs 400 \
+  --batch_size 50 --max_epochs 400 --cache_batches 1 \
   $(resume_flag results/torch/dsgps_dirichlet) \
   > logs/resume_torch/dsgps.log 2>&1 &
 echo "dsgps $!" >> logs/resume_torch/pids.txt
@@ -73,7 +74,7 @@ nohup nice -n 8 "$PYTHON" -m psignn_tpu_torch.cli.main --family dsgps --variant 
   --k 30 --gamma 0.9 --latent_dim 10 --spike_guard --neumann_init_scale 0.1 \
   --enc_loss_mode freeze --seed 7 \
   --lr "$(run_lr results/torch/dsgps_mixed 1e-3)" --gradient_clip 0.01 \
-  --batch_size 50 --max_epochs 400 \
+  --batch_size 50 --max_epochs 400 --cache_batches 1 \
   $(resume_flag results/torch/dsgps_mixed) \
   > logs/resume_torch/dsgps_mixed.log 2>&1 &
 echo "dsgps_mixed $!" >> logs/resume_torch/pids.txt

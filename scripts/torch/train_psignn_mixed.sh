@@ -3,9 +3,10 @@
 # + the recorded config of results/best_model/logs/model_config.csv: 400
 # epochs, fw_thres 500): same knobs as the Dirichlet config on the mixed
 # dataset (3-column tags/prb, Neumann branch).  Endpoint to match: val Res
-# 3.17e-3 at epoch 399.  The flags of scripts/train_psignn_mixed.sh but
-# the TPU-only --pallas and --cache_batches, which the port's CLI does not
-# have; resumes from OUT's running checkpoint when there is one.
+# 3.17e-3 at epoch 399.  The flags of scripts/train_psignn_mixed.sh:
+# --pallas puts each sample in RCM node order and --cache_batches 1 keeps
+# every batch on the card, its membership frozen after the first shuffle;
+# resumes from OUT's running checkpoint when there is one.
 #
 # Usage: bash scripts/torch/train_psignn_mixed.sh [DATA] [OUT] [flags]
 set -e
@@ -21,6 +22,6 @@ OUT=${2:-results/torch/psignn_mixed}
   --latent_dim 10 --n_layers 1 \
   --lr_deq 0.01 --lr_ae 0.05 --sched_step_deq 0.5 --sched_step_ae 0.5 \
   --gradient_clip 0.1 --jac_weight 1.0 \
-  --batch_size 50 --max_epochs 400 \
+  --batch_size 50 --max_epochs 400 --pallas --cache_batches 1 \
   $( [ -f "$OUT/ckpt/running_model.ckpt" ] && echo "--resume $OUT/ckpt/running_model.ckpt" ) \
   "${@:3}"

@@ -44,7 +44,7 @@ ITERS = 4
 # each mode's detail keys beyond bench.py's (but pallas_mp): the port's
 # measurement keys, and the mode's own
 PORT_KEYS = {"launches", "device_s", "busy", "card"}
-MODE_KEYS = {"inference": set(), "train": {"ckpt", "steps"},
+MODE_KEYS = {"inference": {"rcm"}, "train": {"ckpt", "steps", "rcm"},
              "partition": {"backend"}}
 METRICS = {"inference": "psignn_fixed_point_edges_per_s",
            "train": "psignn_train_step_seconds",
@@ -72,13 +72,15 @@ def jax_lines():
 # ------------------------------------------------------------ workloads
 
 
-def test_build_big_graph_matches_jax():
-    """The headline builder: equal node and edge counts, and every array
-    of the graph equal to JAX's real rows (``test_torch_data.py`` holds
-    the data path to exact equality)."""
-    graph, sample, n_nodes, n_edges = bench.build_big_graph(**SMALL,
-                                                            device="cpu")
-    jg, j_nodes, j_edges = jbench.build_big_graph(**SMALL, pallas=False)
+@pytest.mark.parametrize("rcm", [False, True])
+def test_build_big_graph_matches_jax(rcm):
+    """The headline builder, in mesh order and in JAX's RCM order
+    (``pallas=True``): equal node and edge counts, and every array of the
+    graph equal to JAX's real rows (``test_torch_data.py`` holds the data
+    path to exact equality)."""
+    graph, sample, n_nodes, n_edges = bench.build_big_graph(
+        **SMALL, device="cpu", rcm=rcm)
+    jg, j_nodes, j_edges = jbench.build_big_graph(**SMALL, pallas=rcm)
     assert (n_nodes, n_edges) == (j_nodes, j_edges)
     assert (graph.total_nodes, graph.senders.shape[0]) == (n_nodes, n_edges)
     for k in ("x", "b", "sol", "prb_data", "tags", "pos", "fnode_mask",
@@ -96,10 +98,13 @@ def test_build_big_graph_matches_jax():
 def test_train_batch_matches_jax_loop():
     """``train_batch``'s meshes are ``bench_train_step``'s loop
     (``bench.py:132-141``: one generator seeded 0, radius-1 blob meshes),
-    here 3 meshes at hsize 0.3."""
+    here 3 meshes at hsize 0.3; with ``rcm`` each in the order JAX's loop
+    gives it (``rcm_permutation`` + ``apply_node_permutation``)."""
     from psignn_tpu.data.fem import solve_poisson
     from psignn_tpu.data.meshgen import blob_mesh
     from psignn_tpu.data.reader import psignn_sample_from_fem
+    from psignn_tpu.kernels import rcm_permutation
+    from psignn_tpu.kernels.fused_mp import apply_node_permutation
     rng = np.random.default_rng(0)
     want = []
     for _ in range(3):
@@ -113,6 +118,16 @@ def test_train_batch_matches_jax_loop():
     graph = bench.train_batch(3, hsize=0.3, device="cpu")
     assert graph.total_nodes == sum(len(w["x"]) for w in want)
     assert graph.num_graphs == 3
+    ordered = [apply_node_permutation(w, rcm_permutation(
+        w["senders"], w["receivers"], len(w["x"]))) for w in want]
+    rgraph = bench.train_batch(3, hsize=0.3, device="cpu", rcm=True)
+    jg = jax_batch_graphs(ordered)
+    n, e = rgraph.total_nodes, rgraph.senders.shape[0]
+    for k in ("x", "pos", "senders", "receivers", "edge_attr"):
+        want_k = np.asarray(getattr(jg, k))
+        np.testing.assert_array_equal(
+            getattr(rgraph, k).numpy(),
+            want_k[:n] if want_k.shape[0] == jg.x.shape[0] else want_k[:e], k)
 
 
 def test_reference_numbers_are_jax_s():
@@ -123,21 +138,25 @@ def test_reference_numbers_are_jax_s():
 # ---------------------------------------------------------------- modes
 
 
-def test_inference_matches_jax():
+@pytest.mark.parametrize("rcm", [False, True])
+def test_inference_matches_jax(rcm):
     """4 Broyden iterations at fw_tol 0 from JAX's random parameters
     (``psignn_init`` of key 0, carried across by ``params_from_jax``)
     against ``encoder_apply`` + ``fixed_point_forward`` as
-    ``bench.py:300-316`` composes them: iterate within rtol/atol 1e-5
-    (``ROADMAP.md``: 4 iterates come before Broyden's f32 chaos)."""
+    ``bench.py:300-316`` composes them, on the mesh in its order and in
+    RCM order (JAX's ``pallas=True`` graph, its message passing XLA's):
+    iterate within rtol/atol 1e-5 (``ROADMAP.md``: 4 iterates come before
+    Broyden's f32 chaos)."""
     jcfg = JaxPsignnConfig(solver="broyden", fw_tol=0.0, fw_thres=ITERS)
     params = psignn_init(jax.random.PRNGKey(0), jcfg)
-    jg, _, _ = jbench.build_big_graph(**SMALL, pallas=False)
+    jg, _, _ = jbench.build_big_graph(**SMALL, pallas=rcm)
     h0 = encoder_apply(params["autoencoder"], jg.x) * jg.fnode_mask
     jout = jdeq.fixed_point_forward(make_function(jcfg), params["function"],
                                     h0, jg, jcfg.deq)
     model = psignn_from_jax(jax.tree.map(np.asarray, params),
                             bench.headline_config(ITERS), "cpu").eval()
-    line, out = bench.inference("cpu", ITERS, **SMALL, model=model)
+    line, out = bench.inference("cpu", ITERS, **SMALL, model=model, rcm=rcm)
+    assert line["detail"]["rcm"] is rcm
     n = line["detail"]["n_nodes"]
     np.testing.assert_allclose(out.result.numpy(),
                                np.asarray(jout.result)[:n], rtol=1e-5,
@@ -219,6 +238,36 @@ def test_train_mode_restarts_every_rep(monkeypatch):
                  * losses["jacobian_loss"] + losses["encoder_loss"]
                  + losses["autoencoder_loss"])
     np.testing.assert_allclose(line["detail"]["loss"], want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode,env,want", [
+    ("inference", None, True), ("inference", "0", False),
+    ("train", None, True), ("train", "0", False), ("train", "1", True)])
+def test_modes_order_as_bench_py_reads_its_switch(mode, env, want,
+                                                  monkeypatch):
+    """The inference and train modes build RCM-ordered meshes unless
+    ``PSIGNN_TPU_BENCH_PALLAS`` is set to anything but ``1``, as
+    ``bench.py:284`` reads it: the builder is asked for that order, every
+    sample goes through ``rcm_ordered`` exactly when it is RCM, and the
+    line's ``detail.rcm`` says which."""
+    if env is None:
+        monkeypatch.delenv("PSIGNN_TPU_BENCH_PALLAS", raising=False)
+    else:
+        monkeypatch.setenv("PSIGNN_TPU_BENCH_PALLAS", env)
+    ordered = []
+    real = bench.rcm_ordered
+    monkeypatch.setattr(bench, "rcm_ordered",
+                        lambda s: ordered.append(len(s["x"])) or real(s))
+    if mode == "inference":
+        line, _ = bench.inference("cpu", ITERS, **SMALL, reps=1)
+        n_samples = 1
+    else:
+        kernel_route(monkeypatch)
+        line, _ = bench.train("cpu", n_meshes=2, hsize=0.3, reps=1)
+        n_samples = 2
+    assert line["detail"]["rcm"] is want
+    assert len(ordered) == (n_samples if want else 0)
+    assert sum(ordered) in (0, line["detail"]["n_nodes"])
 
 
 def test_partition_matches_one_process():

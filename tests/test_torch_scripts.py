@@ -45,9 +45,6 @@ PAIRS = {
     "eval_trained.sh": "scripts/eval_trained.sh",
     "resume_round.sh": "scripts/resume_round.sh",
 }
-# the JAX flags the port's CLI does not have: TPU-only, and named in the
-# port scripts' comments
-TPU_ONLY = {"--pallas": 0, "--cache_batches": 1, "--rcm": 0}
 PARSERS = {"cli.main": get_parser, "data.generate": generate_parser,
            "eval.run_eval": eval_parser}
 FAST = ["--fw_thres", "25", "--bw_thres", "25", "--val_sradius", "0",
@@ -81,16 +78,12 @@ def _port_value(value):
     return value.replace("results/", "results/torch/")
 
 
-def _without_tpu_only(flags):
-    return [(f, v) for f, v in flags if f not in TPU_ONLY]
-
-
 @pytest.mark.parametrize("port", sorted(PAIRS))
 def test_flag_parity_with_the_jax_script(port):
     """The port script runs the JAX script's commands, module for module
-    and in order, with the same flags and values but the TPU-only ones
-    (and its outputs under results/torch/); each resume clause too; and
-    the port's argparse accepts every command."""
+    and in order, with the same flags and values, every one of them (and
+    its outputs under results/torch/); each resume clause too; and the
+    port's argparse accepts every command."""
     jax_cmds = chip_smoke.script_commands(os.path.join(ROOT, PAIRS[port]))
     port_cmds = chip_smoke.script_commands(os.path.join(TORCH, port))
     assert [c["module"] for c in port_cmds] == [
@@ -98,8 +91,7 @@ def test_flag_parity_with_the_jax_script(port):
         for c in jax_cmds]
     assert port_cmds
     for j, p in zip(jax_cmds, port_cmds):
-        want = [(f, _port_value(v)) for f, v in
-                _without_tpu_only(_flags(j["argv"]))]
+        want = [(f, _port_value(v)) for f, v in _flags(j["argv"])]
         assert _flags(p["argv"]) == want, (port, p["argv"])
         assert p["clauses"] == [_port_value(c) for c in j["clauses"]]
         parser = PARSERS[p["module"].split(".", 1)[1]]()
@@ -109,15 +101,23 @@ def test_flag_parity_with_the_jax_script(port):
         parser.parse_args(argv)
 
 
-def test_tpu_only_flags_are_named_where_dropped():
-    """Each port script that drops a TPU-only flag says so."""
+def test_no_jax_flag_is_dropped():
+    """Every flag of each JAX script is in its port script, and every
+    option of the JAX training CLI is an option of the port's: since the
+    port has ``--rcm``, ``--pallas``, ``--cache_batches`` and ``--comment``
+    none is dropped as TPU-only any more."""
+    from psignn_tpu.cli.main import get_parser as jax_parser
     for port, jax in PAIRS.items():
-        jax_flags = {f for c in chip_smoke.script_commands(
-            os.path.join(ROOT, jax)) for f, _ in _flags(c["argv"])}
+        flags = [{f for c in chip_smoke.script_commands(path)
+                  for f, _ in _flags(c["argv"])}
+                 for path in (os.path.join(ROOT, jax),
+                              os.path.join(TORCH, port))]
+        assert flags[0] <= flags[1], (port, sorted(flags[0] - flags[1]))
         with open(os.path.join(TORCH, port)) as f:
-            text = f.read()
-        for flag in sorted(jax_flags & set(TPU_ONLY)):
-            assert flag in text, (port, flag)
+            assert "TPU-only" not in f.read(), port
+    ours = set(get_parser()._option_string_actions)
+    theirs = set(jax_parser()._option_string_actions)
+    assert theirs <= ours, sorted(theirs - ours)
 
 
 def test_script_commands_reads_clauses_and_defaults():

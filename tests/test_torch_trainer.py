@@ -1,8 +1,9 @@
 """Port trainer and training CLI on the CPU: two epochs and a resume with
 their logs and checkpoints, a checkpoint the port trained answering a
 sweep request, the CLI's help, a tiny run, a mixed run and runs with the
-other solvers (Newton's included), the spike guard and the flags the CLI
-refuses (``tests/test_trainer.py`` mirrored).  Data-parallel runs
+other solvers (Newton's included), the spike guard, and the JAX CLI's
+node-order, batch-cache and comment flags (``tests/test_trainer.py``
+mirrored).  Data-parallel runs
 (``--num_devices``) are in ``tests/test_torch_dist.py``.  The per-graph solves, Broyden's
 rank memory, bfloat16 data and resuming from a JAX checkpoint are in
 ``tests/test_torch_stacked.py``, ``test_torch_lowrank.py`` and
@@ -306,9 +307,21 @@ def test_cli_trains_with_newton(tmp_path, data_dir, tiny_dir, capsys,
     assert all(np.isfinite(v) for v in ck["hist_train"]["loss"])
 
 
-@pytest.mark.parametrize("flag", ["--pallas", "--rcm", "--cache_batches"])
-def test_cli_has_no_tpu_flags(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        main([flag])
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+@pytest.mark.parametrize("flags", [
+    ["--pallas"], ["--rcm"], ["--cache_batches", "1"], ["--comment", "x"],
+    ["--pallas", "--cache_batches", "1", "--comment", "x"]],
+    ids=lambda f: "_".join(f).strip("-"))
+def test_cli_trains_with_jax_data_flags(tmp_path, data_dir, capsys, flags):
+    """The JAX CLI's node-order, batch-cache and comment flags, once
+    refused as TPU-only, each train a 2-epoch run to a finite loss; the
+    checkpoint keeps the model config alone, as JAX's does."""
+    out = str(tmp_path / "run")
+    main(["--path_dataset", data_dir, "--path_results", out,
+          "--max_epochs", "2", "--batch_size", "3", *FAST_FLAGS, *flags])
+    assert "Training finished" in capsys.readouterr().out
+    ck = load_checkpoint(os.path.join(out, "ckpt", "final_model.ckpt"))
+    assert len(ck["hist_train"]["loss"]) == len(ck["hist_val"]["loss"]) == 2
+    assert all(np.isfinite(v) for v in ck["hist_train"]["loss"]
+               + ck["hist_val"]["loss"])
+    assert not {"rcm", "pallas", "cache_batches", "comment"} \
+        & set(ck["hyperparameters"])
