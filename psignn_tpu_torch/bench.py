@@ -11,6 +11,8 @@ Three modes, each ``bench.py``'s workload and JSON line:
   threshold) on the radius-5 blob mesh (hsize 0.08, seed 0: 11,214 nodes,
   76,353 COO edges with the diagonal) with random weights from seed 0;
   ``edges/s = iters · 2 · n_edges / wall``, best of 3 after a warm-up.
+  The solve runs Broyden's carried loop on the card (CUDA graphs, one
+  host read a chunk; ``solvers``) and its host loop on the CPU.
 * ``train`` (``bench.py:110-200``) — one implicit-gradient train step
   (DEQ forward, adjoint backward, Hutchinson Jacobian loss, clip 0.1,
   dual Adam 0.01 / 0.05) on 50 radius-1 meshes (24,782 nodes) at fw 1e-5 /
@@ -44,7 +46,10 @@ best-of reps; partition: summed over the ranks); ``device_s`` — the
 device's kernel time in one profiled run after the timed ones (partition:
 rank 0's); ``busy`` — ``device_s`` over the best unprofiled wall;
 ``card`` — ``nvidia-smi``'s name and power limit.  On the CPU these three
-are None.
+are None.  The inference line also holds the solve's ``loop`` ("while"
+or "host"), and of the timed run's solve its ``host_reads``, the CUDA
+``graphs`` it captured and their ``capture_s``, seconds inside the
+timed wall: a request pays them.
 """
 
 from __future__ import annotations
@@ -171,12 +176,14 @@ def headline_model(cfg, device):
                   device=device).eval()
 
 
-def headline_solve(model, graph, cfg):
-    """Encoder, then the fixed point of f_θ (``bench.py:300-304``)."""
+def headline_solve(model, graph, cfg, loop: Optional[str] = None):
+    """Encoder, then the fixed point of f_θ (``bench.py:300-304``) by the
+    solver's ``loop`` (None: its route)."""
     from .deq import fixed_point_forward
     with torch.no_grad():
         h0 = model.encoder(graph.x) * graph.fnode_mask
-        return fixed_point_forward(model.function, h0, graph, cfg.deq)
+        return fixed_point_forward(model.function, h0, graph, cfg.deq,
+                                   loop=loop)
 
 
 def trained_model(device, overrides=None, ckpt: str = CKPT):
@@ -295,8 +302,10 @@ def card_line(device) -> Optional[str]:
 def inference(device, iters: int = HEADLINE_ITERS, radius: float = 5.0,
               hsize: float = 0.08, model=None, reps: int = REPS,
               rcm: Optional[bool] = None):
-    """(line, SolverResult of the last rep): the headline solve; ``model``
-    defaults to ``headline_model``, ``rcm`` to ``bench_rcm()``."""
+    """(line, SolverResult of the last rep): the headline solve by the
+    solver's route; ``model`` defaults to ``headline_model``, ``rcm`` to
+    ``bench_rcm()``."""
+    from .solvers import resolve_loop
     device = torch.device(device)
     rcm = bench_rcm() if rcm is None else rcm
     t0 = time.perf_counter()
@@ -304,6 +313,7 @@ def inference(device, iters: int = HEADLINE_ITERS, radius: float = 5.0,
                                                  device=device, rcm=rcm)
     cfg = headline_config(iters)
     model = model if model is not None else headline_model(cfg, device)
+    loop = resolve_loop(cfg.solver, None, graph.x)
     _log(f"mesh and model {time.perf_counter() - t0:.1f} s")
 
     def run():
@@ -313,7 +323,8 @@ def inference(device, iters: int = HEADLINE_ITERS, radius: float = 5.0,
     outs, walls, launches = _timed(run, device, reps)
     _log(f"walls {walls}")
     dt = min(walls)
-    done = outs[-1].calls - 1        # fw_tol 0 runs the full threshold
+    out = outs[-1]
+    done = out.calls - 1             # fw_tol 0 runs the full threshold
     device_s = device_seconds(run, device)
     edges_per_s = done * 2 * n_edges / dt
     return {
@@ -327,8 +338,10 @@ def inference(device, iters: int = HEADLINE_ITERS, radius: float = 5.0,
             "baseline_edges_per_s": round(REF_EDGES_PER_S, 1),
             "launches": launches[-1], "device_s": device_s,
             "busy": _busy(device_s, dt), "card": card_line(device),
+            "loop": loop, "host_reads": out.host_reads,
+            "graphs": out.graphs, "capture_s": out.capture_s,
         },
-    }, outs[-1]
+    }, out
 
 
 def train(device, n_meshes: int = TRAIN_MESHES, hsize: float = 0.08,

@@ -3,12 +3,31 @@ line search), Newton and Newton-Krylov.
 
 Port of ``psignn_tpu/solvers.py`` (the reference's
 ``utilities/solver.py``).  JAX runs each solver as a ``lax.while_loop``
-with fixed-shape carries; here the loops are host-driven, with one small
-host read per iteration (per line-search candidate) of the scalars that
-steer them.  Those scalars are compared in float32, as the JAX loops do.
-Broyden's live rank is a Python integer and its rank-1 factors live in
-preallocated ``(cap, d)`` buffers (cap = threshold, or ``max_rank``'s ring)
-used through ``[:live]`` slices.
+with fixed-shape carries.  Here two loops exist:
+
+* **carried** (``loop="while"``; ``broyden`` and ``picard``): JAX's form.
+  The solver's whole state is a carry of preallocated device tensors, and
+  one function (``_broyden_body``, ``_picard_body``) writes an iteration
+  into it in place, the stop test, best iterate, plateau window,
+  divergence guard and traces included, freezing every entry once the
+  solve has stopped.  ``loop.run_while`` steps it in chunks of
+  ``loop.CHUNK`` iterations, each step after the first chunk a replayed
+  one-step CUDA graph on the card, with one host read of the stop flag a
+  chunk.  Broyden's pairs live in zeroed rows, whole ``_LR_BLOCK``
+  blocks of them, whose live blocks the products read, as JAX's
+  ``fori_loop`` over live blocks does.
+* **host** (``loop="host"``; every solver): the loop is driven from the
+  host, with one small host read per iteration (per line-search
+  candidate) of the scalars that steer it.  Broyden's live rank is then a
+  Python integer and its pairs live in ``(cap, d)`` buffers used through
+  ``[:live]`` slices.
+
+``loop=None`` takes the carried loop for a CUDA tensor and the host loop
+otherwise; the options the carried loop does not take (Broyden's line
+search, lanes, ``reduce`` / ``sync``) take the host loop by name, and
+raise with ``loop="while"``.  Anderson and the Newton solvers keep the
+host loop.  Either way the scalars that steer a solve are compared in
+float32, as the JAX loops do.
 Kept exactly, solver by solver:
 
 * ``broyden``: rel/abs stop modes, ``rel = ‖g‖ / (‖g + x‖ + 1e-9)``;
@@ -64,18 +83,24 @@ loop runs while any rank goes on, and a rank that has stopped evaluates
 each step still (its collectives keep step with the others') but keeps
 its state, as the JAX loops freeze their carries.  Lanes take neither.
 
-``SolverResult.calls`` counts the evaluations of ``f``, and
-``SolverResult.jvps`` the JVPs of the Newton solvers (each evaluates ``f``
-once more, on dual tensors, when ``jvp`` is the default).
+``SolverResult.calls`` counts the evaluations of ``f`` (the carried loop's
+frozen ones after its stop included), ``SolverResult.jvps`` the JVPs of
+the Newton solvers (each evaluates ``f`` once more, on dual tensors, when
+``jvp`` is the default), ``host_reads`` the reads of device values that
+steered the solve, and ``graphs`` / ``capture_s`` the CUDA graphs that
+the carried loop captured and the host seconds that took.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence
+import functools
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
+
+from .loop import run_while
 
 
 class SolverResult(NamedTuple):
@@ -89,6 +114,9 @@ class SolverResult(NamedTuple):
     trace_len: int                 # number of valid entries in `trace`
     calls: int                     # evaluations of f
     jvps: int = 0                  # JVPs of f (Newton, Newton-Krylov)
+    host_reads: int = 0            # device reads that steered the loop
+    graphs: int = 0                # CUDA graphs captured (carried loop)
+    capture_s: float = 0.0         # host seconds of their capture
 
 
 class Lanes:
@@ -138,10 +166,33 @@ class _Counted:
         return self.f(*args)
 
 
+# Reads of device values that steered a solver loop since the process
+# started; each solver's result holds the reads its call made.
+HOST_READS = 0
+
+
+def _fetch(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: one read, counted."""
+    global HOST_READS
+    HOST_READS += 1
+    return t.cpu()
+
+
 def _host(*scalars: torch.Tensor) -> np.ndarray:
     """0-d device scalars (or (G,) lane vectors) as one float32 host array
     (one transfer)."""
-    return torch.stack(scalars).cpu().numpy().astype(_F32)
+    return _fetch(torch.stack(scalars)).numpy().astype(_F32)
+
+
+def _counts_reads(solver: Callable) -> Callable:
+    """``solver`` whose result's ``host_reads`` counts the reads the call
+    made, those of the solvers it calls included."""
+    @functools.wraps(solver)
+    def counted(*args, **kwargs) -> SolverResult:
+        start = HOST_READS
+        out = solver(*args, **kwargs)
+        return out._replace(host_reads=HOST_READS - start)
+    return counted
 
 
 def _lane_mask(active: np.ndarray, device) -> torch.Tensor:
@@ -187,18 +238,25 @@ def _norms(reduce: Optional[Callable], *vs: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(reduce(torch.stack([torch.dot(v, v) for v in vs])))
 
 
+@_counts_reads
 def picard(f: Callable, x0: torch.Tensor, threshold: int = 50,
            eps: float = 1e-5, stop_mode: str = "rel",
            keep_trace: bool = False, lanes: Optional[Lanes] = None,
            reduce: Optional[Callable] = None,
-           sync: Optional[Callable] = None) -> SolverResult:
+           sync: Optional[Callable] = None,
+           loop: Optional[str] = None) -> SolverResult:
     """Plain fixed-point iteration z ← f(z), stopped when the relative step
     ‖z_prev − z‖ / ‖z‖ is at most eps or after ``threshold`` steps; the
     reference ignores ``stop_mode`` here, and so does this port.  The
     result is the last iterate, ``nstep`` the number of steps after the
-    first evaluation.  ``reduce`` / ``sync``: see the module docstring."""
+    first evaluation.  ``reduce`` / ``sync``, ``loop``: see the module
+    docstring."""
     del stop_mode
     _no_lane_options("picard", lanes, keep_trace, reduce, sync)
+    if resolve_loop("picard", loop, x0, lanes=lanes is not None,
+                    reduce=reduce is not None,
+                    sync=sync is not None) == "while":
+        return _picard_while(f, x0, int(threshold), eps, keep_trace)
     if lanes is not None:
         return _picard_lanes(f, x0, int(threshold), eps, lanes)
     f = _Counted(f)
@@ -291,6 +349,7 @@ ANDERSON_WINDOW = 2
 ANDERSON_LAM = 1e-4
 
 
+@_counts_reads
 def anderson(f: Callable, x0: torch.Tensor, threshold: int = 50,
              eps: float = 1e-3, stop_mode: str = "rel",
              keep_trace: bool = False, lanes: Optional[Lanes] = None,
@@ -620,13 +679,287 @@ def _lane_rank_products(U, V, delta_x, rhs2):
             torch.bmm(_rounded(vtx, lo).transpose(1, 2), Uf))
 
 
+# ----------------------------------------------------------- carried loop
+
+LOOPS = ("while", "host")
+
+
+def resolve_loop(name: str, loop: Optional[str], x0: torch.Tensor,
+                 **host_only: bool) -> str:
+    """The loop a solver runs: ``loop``, or by default ``"while"`` (the
+    carried loop) for a CUDA tensor and ``"host"`` otherwise.  Each option
+    named in ``host_only`` that is set takes the host loop: by default,
+    or with ``loop="while"`` a ``NotImplementedError``."""
+    if loop is not None and loop not in LOOPS:
+        raise ValueError(f"{name}: loop must be one of {LOOPS} or None, "
+                         f"not {loop!r}")
+    taken = [opt for opt, on in host_only.items() if on]
+    if loop == "while" and taken:
+        raise NotImplementedError(
+            f"{name}: the carried loop does not take {', '.join(taken)}; "
+            "use loop='host'")
+    if loop is None:
+        return "while" if x0.device.type == "cuda" and not taken else "host"
+    return loop
+
+
+def _keep(done: torch.Tensor, old: torch.Tensor, new: torch.Tensor) -> None:
+    """``old`` ← ``new`` in place, unless the solve is ``done``."""
+    torch.where(done, old, new, out=old)
+
+
+def _row(done: torch.Tensor, row, scratch: int) -> torch.Tensor:
+    """(1,) device index of the row a step writes: ``row``, or once the
+    solve is ``done`` the buffer's last row, a scratch row no result
+    reads, so that a frozen step writes one row of nothing."""
+    return torch.where(done, scratch, row).reshape(1)
+
+
+def _scalar(value, dtype, device) -> torch.Tensor:
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def _picard_done(rel: torch.Tensor, ite, T: int,
+                 eps32: float) -> torch.Tensor:
+    """Whether Picard has stopped: the step is no longer above eps (NaN
+    stops), or the threshold is reached."""
+    return ~(rel > eps32) | (ite >= T)
+
+
+def _picard_carry(x0: torch.Tensor, z1: torch.Tensor, T: int, eps32: float,
+                  keep_trace: bool) -> Dict[str, torch.Tensor]:
+    """Picard's carry after the first evaluation z1 = f(x0) (JAX
+    ``solvers.py:112-122, 140-143``); each trace has one scratch row."""
+    dev, f32 = x0.device, torch.float32
+    ab, nz = _norms(None, x0.reshape(-1) - z1, z1).float()
+    rel = ab / nz
+    c = dict(z=z1, ite=torch.zeros((), dtype=torch.int64, device=dev),
+             rel=rel, abs_trace=torch.zeros(T + 2, dtype=f32, device=dev),
+             rel_trace=torch.zeros(T + 2, dtype=f32, device=dev),
+             done=_picard_done(rel, 0, T, eps32))
+    c["abs_trace"][0] = ab
+    c["rel_trace"][0] = rel
+    if keep_trace:
+        c["trace"] = torch.zeros((T + 3,) + tuple(x0.shape), dtype=x0.dtype,
+                                 device=dev)
+        c["trace"][0] = x0
+        c["trace"][1] = z1.reshape(x0.shape)
+    return c
+
+
+def _picard_body(c: Dict[str, torch.Tensor], static, f: Callable, shape,
+                 T: int, eps32: float) -> None:
+    """One Picard iteration written into the carry ``c`` (JAX ``body``,
+    ``solvers.py:127-138``), frozen once the solve has stopped."""
+    done = _picard_done(c["rel"], c["ite"], T, eps32)
+    z = f(c["z"].reshape(shape)).reshape(-1)
+    ite = c["ite"] + 1
+    ab, nz = _norms(None, c["z"] - z, z).float()
+    rel = ab / nz
+    row = _row(done, ite, T + 1)
+    c["abs_trace"].index_copy_(0, row, ab.reshape(1))
+    c["rel_trace"].index_copy_(0, row, rel.reshape(1))
+    if "trace" in c:
+        c["trace"].index_copy_(0, _row(done, ite + 1, T + 2),
+                               z.reshape((1,) + tuple(shape)))
+    _keep(done, c["z"], z)
+    _keep(done, c["ite"], ite)
+    _keep(done, c["rel"], rel)
+    torch.logical_or(~(c["rel"] > eps32), c["ite"] >= T, out=c["done"])
+
+
+def _picard_while(f: Callable, x0: torch.Tensor, T: int, eps: float,
+                  keep_trace: bool) -> SolverResult:
+    """``picard`` as a carried loop (``loop.run_while``)."""
+    global HOST_READS
+    shape = x0.shape
+    eps32 = float(_F32(eps))
+    c = _picard_carry(x0, f(x0).reshape(-1).clone(), T, eps32, keep_trace)
+    stats = run_while(functools.partial(_picard_body, f=f, shape=shape, T=T,
+                                        eps32=eps32), c, T)
+    head = _fetch(torch.cat([c["abs_trace"][:T], c["rel_trace"][:T],
+                             c["rel"].reshape(1),
+                             c["ite"].reshape(1).float()]))
+    HOST_READS += stats.host_reads
+    ite = int(head[2 * T + 1])
+    trace = c["trace"][:T + 2] if keep_trace else None
+    return SolverResult(
+        result=c["z"].reshape(shape), lowest=float(head[2 * T]), nstep=ite,
+        prot_break=False, abs_trace=head[:T].clone(),
+        rel_trace=head[T:2 * T].clone(), trace=trace, trace_len=ite + 2,
+        calls=1 + stats.steps, graphs=stats.graphs,
+        capture_s=stats.capture_s)
+
+
+def _broyden_carry(x0: torch.Tensor, gx: torch.Tensor, T: int, R_cap: int,
+                   lr_dtype, keep_trace: bool) -> Dict[str, torch.Tensor]:
+    """Broyden's carry before its first step (JAX ``solvers.py:399-412,
+    524-533``): the pairs in zeroed rows, whole ``_LR_BLOCK`` blocks of
+    them, and each buffer a step writes a row of with one scratch row."""
+    dev, dt, f32 = x0.device, x0.dtype, torch.float32
+    d = x0.numel()
+    rows = -(-R_cap // _LR_BLOCK) * _LR_BLOCK
+    x = x0.reshape(-1).clone()
+    big = float(_F32(1e8))
+    c = dict(x=x, gx=gx, update=gx.clone(),
+             Us=torch.zeros((rows + 1, d), dtype=lr_dtype, device=dev),
+             VTs=torch.zeros((rows + 1, d), dtype=lr_dtype, device=dev),
+             nstep=torch.zeros((), dtype=torch.int64, device=dev),
+             abs_trace=torch.zeros(T + 1, dtype=f32, device=dev),
+             rel_trace=torch.zeros(T + 1, dtype=f32, device=dev),
+             lowest=_scalar(big, f32, dev), lowest_alt=_scalar(big, f32, dev),
+             lowest_x=x.clone(),
+             lowest_step=torch.zeros((), dtype=torch.int64, device=dev),
+             prot_break=torch.zeros((), dtype=torch.bool, device=dev),
+             stop=torch.zeros((), dtype=torch.bool, device=dev),
+             done=_scalar(T <= 0, torch.bool, dev),
+             window=torch.arange(30, device=dev))
+    if keep_trace:
+        c["trace"] = torch.zeros((T + 2,) + tuple(x0.shape), dtype=dt,
+                                 device=dev)
+        c["trace"][0] = x0
+    return c
+
+
+def _broyden_live_blocks(k: int, R_cap: int) -> int:
+    """Rank blocks the step after ``k`` steps reads: those holding rows
+    0..k (JAX ``solvers.py:467``), at most the buffers'."""
+    return min(k // _LR_BLOCK + 1, -(-R_cap // _LR_BLOCK))
+
+
+def _broyden_body(c: Dict[str, torch.Tensor], nblk: int, g: Callable,
+                  shape, T: int, stop_mode: str, R_cap: int, eps32: float,
+                  eps3: float, protect: float) -> None:
+    """One Broyden step written into the carry ``c`` (JAX ``body``,
+    ``solvers.py:417-522``), frozen once the solve has stopped.  The rank
+    products read the first ``nblk`` blocks of pairs, whose rows at or
+    past the step count are zero, so they equal the live rows' sums."""
+    done = c["stop"] | (c["nstep"] >= T)
+    live = ~done
+    x, gx = c["x"], c["gx"]
+    x_new = x + c["update"]
+    gx_new = g(x_new)
+    k = c["nstep"]                         # stored pairs; step k + 1
+    nstep = k + 1
+    delta_x = x_new - x
+    delta_gx = gx_new - gx
+    rows = nblk * _LR_BLOCK
+    slot = (k % R_cap).reshape(1)
+    y = gx_new + x_new
+    parts = [torch.dot(gx_new, gx_new), torch.dot(y, y)]
+    wraps = R_cap < T                      # static: the ring can wrap
+    if wraps:                              # the slot's pair, zero until full
+        u_old = c["Us"].index_select(0, slot)[0].to(x.dtype)
+        v_old = c["VTs"].index_select(0, slot)[0].to(x.dtype)
+        parts += [torch.dot(delta_x, u_old), torch.dot(v_old, delta_gx),
+                  torch.dot(v_old, gx_new)]
+    ra, mv2, sums = _rank_products(c["Us"][:rows], c["VTs"][:rows], delta_x,
+                                   torch.stack([delta_gx, gx_new]),
+                                   torch.stack(parts))
+    norms, dots = torch.sqrt(sums[:2]), sums[2:]
+    if wraps:                              # evict the oldest pair once full
+        dots = torch.where(k >= R_cap, dots, 0.0)
+        ra = ra - dots[0] * v_old
+        mv2 = mv2 - torch.stack([u_old * dots[1], u_old * dots[2]])
+    vT = -delta_x + ra                                     # rmatvec(Δx)
+    mv_dgx = -delta_gx + mv2[0]                            # matvec(Δg)
+    mv_gx = -gx_new + mv2[1]                               # matvec(g_new)
+    vT_clean = torch.nan_to_num(vT, nan=0.0, posinf=0.0, neginf=0.0)
+    denom, vt_g = torch.stack([torch.dot(vT, delta_gx),
+                               torch.dot(vT_clean, gx_new)])
+    u = (delta_x - mv_dgx) / denom
+    u = torch.nan_to_num(u, nan=0.0, posinf=0.0, neginf=0.0)
+    new_update = -(mv_gx + u * vt_g)
+
+    ab, den = norms.float()
+    rel = ab / (den + float(_F32(1e-9)))
+    diff, alt = (rel, ab) if stop_mode == "rel" else (ab, rel)
+    row = _row(done, k, T)
+    c["abs_trace"].index_copy_(0, row, ab.reshape(1))
+    c["rel_trace"].index_copy_(0, row, rel.reshape(1))
+    stop_trace = c["rel_trace"] if stop_mode == "rel" else c["abs_trace"]
+    # plateau: the last-30 window flat once under 3·eps, in JAX's masked
+    # form (solvers.py:445-451); divergence: over the first · threshold
+    idx = (nstep - 30).clamp(min=0) + c["window"]
+    win = stop_trace[idx.clamp(max=T - 1)]
+    seen = idx < nstep
+    flat = (torch.where(seen, win, -torch.inf).max()
+            / torch.where(seen, win, torch.inf).min()) < float(_F32(1.3))
+    plateau = (diff < eps3) & (nstep > 30) & flat
+    prot = diff > stop_trace[0] * protect
+
+    put = _row(done, slot, c["Us"].shape[0] - 1)
+    c["Us"].index_copy_(0, put, u.to(c["Us"].dtype).unsqueeze(0))
+    c["VTs"].index_copy_(0, put, vT_clean.to(c["VTs"].dtype).unsqueeze(0))
+    if "trace" in c:
+        c["trace"].index_copy_(0, _row(done, nstep, T + 1),
+                               x_new.reshape((1,) + tuple(shape)))
+    better = (diff < c["lowest"]) & live
+    torch.where(better, x_new, c["lowest_x"], out=c["lowest_x"])
+    torch.where(better, nstep, c["lowest_step"], out=c["lowest_step"])
+    torch.where(better, diff, c["lowest"], out=c["lowest"])
+    torch.where((alt < c["lowest_alt"]) & live, alt, c["lowest_alt"],
+                out=c["lowest_alt"])
+    torch.logical_or(c["prot_break"], prot & live, out=c["prot_break"])
+    _keep(done, c["stop"], (diff < eps32) | plateau | prot)
+    _keep(done, c["x"], x_new)
+    _keep(done, c["gx"], gx_new)
+    _keep(done, c["update"], new_update)
+    _keep(done, c["nstep"], nstep)
+    torch.logical_or(c["stop"], c["nstep"] >= T, out=c["done"])
+
+
+def _broyden_while(f: Callable, x0: torch.Tensor, T: int, eps: float,
+                   stop_mode: str, keep_trace: bool, max_rank: int,
+                   lowrank_dtype) -> SolverResult:
+    """``broyden`` as a carried loop (``loop.run_while``), the live rank
+    blocks a static key of its graphs."""
+    global HOST_READS
+    shape = x0.shape
+    seq_len = shape[-1] if x0.dim() > 1 else 1
+    R_cap = rank_cap(T, max_rank)
+
+    def g(xf):
+        return f(xf.reshape(shape)).reshape(-1) - xf
+
+    c = _broyden_carry(x0, g(x0.reshape(-1)), T, R_cap,
+                       lowrank_dtype or x0.dtype, keep_trace)
+    body = functools.partial(
+        _broyden_body, g=g, shape=shape, T=T, stop_mode=stop_mode,
+        R_cap=R_cap, eps32=float(_F32(eps)), eps3=float(3 * _F32(eps)),
+        protect=float(_F32((1e6 if stop_mode == "abs" else 1e3) * seq_len)))
+    stats = run_while(body, c, T,
+                      key=lambda k: _broyden_live_blocks(k, R_cap))
+
+    # unvisited trace entries take the lowest value (JAX :536-545)
+    visited = torch.arange(T, device=x0.device) < c["nstep"]
+    low_rel, low_abs = ((c["lowest"], c["lowest_alt"]) if stop_mode == "rel"
+                        else (c["lowest_alt"], c["lowest"]))
+    head = _fetch(torch.cat([
+        torch.where(visited, c["abs_trace"][:T], low_abs),
+        torch.where(visited, c["rel_trace"][:T], low_rel),
+        torch.stack([c["lowest"], c["nstep"].float(),
+                     c["lowest_step"].float(), c["prot_break"].float()])]))
+    HOST_READS += stats.host_reads
+    lowest, nstep, lowest_step, prot = head[2 * T:].tolist()
+    return SolverResult(
+        result=c["lowest_x"].reshape(shape), lowest=lowest,
+        nstep=int(lowest_step), prot_break=bool(prot),
+        abs_trace=head[:T].clone(), rel_trace=head[T:2 * T].clone(),
+        trace=c["trace"][:T + 1] if keep_trace else None,
+        trace_len=int(nstep) + 1, calls=1 + stats.steps,
+        graphs=stats.graphs, capture_s=stats.capture_s)
+
+
+@_counts_reads
 def broyden(f: Callable, x0: torch.Tensor, threshold: int = 50,
             eps: float = 1e-3, stop_mode: str = "rel",
             keep_trace: bool = False, ls: bool = False, max_rank: int = 0,
             lowrank_dtype: Optional[torch.dtype] = None,
             lanes: Optional[Lanes] = None,
             reduce: Optional[Callable] = None,
-            sync: Optional[Callable] = None) -> SolverResult:
+            sync: Optional[Callable] = None,
+            loop: Optional[str] = None) -> SolverResult:
     """Broyden quasi-Newton root finder for g(x) = f(x) − x.
 
     The inverse Jacobian is −I + U Vᵀ with one rank-1 pair per step
@@ -642,10 +975,16 @@ def broyden(f: Callable, x0: torch.Tensor, threshold: int = 50,
     evicted and the iterates are those of full memory, bit for bit.
     ``lowrank_dtype`` (``torch.bfloat16``) stores the pairs narrower; u and
     vᵀ are still computed in x's precision (``_rank_products``).  Neither
-    is on by default.  ``reduce`` / ``sync``: see the module docstring."""
+    is on by default.  ``reduce`` / ``sync``, ``loop``: see the module
+    docstring."""
     if stop_mode not in ("rel", "abs"):
         raise ValueError(stop_mode)
     _no_lane_options("broyden", lanes, keep_trace, reduce, sync)
+    if resolve_loop("broyden", loop, x0, ls=ls, lanes=lanes is not None,
+                    reduce=reduce is not None,
+                    sync=sync is not None) == "while":
+        return _broyden_while(f, x0, int(threshold), eps, stop_mode,
+                              keep_trace, max_rank, lowrank_dtype)
     if lanes is not None:
         return _broyden_lanes(f, x0, int(threshold), eps, stop_mode, ls,
                               max_rank, lowrank_dtype, lanes)
@@ -717,7 +1056,7 @@ def broyden(f: Callable, x0: torch.Tensor, threshold: int = 50,
         u = torch.nan_to_num(u, nan=0.0, posinf=0.0, neginf=0.0)
         new_update = -(mv_gx + u * vt_g)
 
-        ab_t, den_t = norms.cpu().numpy()
+        ab_t, den_t = _fetch(norms).numpy()
         if not live:
             continue                 # stopped: the state stays (sync)
         Us[slot] = u
@@ -841,7 +1180,7 @@ def _broyden_lanes(f: Callable, x0: torch.Tensor, T: int, eps: float,
         x = torch.where(mask, x_new, x)
         gx = torch.where(mask, gx_new, gx)
 
-        ab, den = norms.cpu().numpy().astype(_F32)
+        ab, den = _fetch(norms).numpy().astype(_F32)
         rel = (ab / (den + _F32(1e-9))).astype(_F32)
         diff, alt = (rel, ab) if stop_mode == "rel" else (ab, rel)
         abs_trace[k, active] = ab[active]
@@ -920,10 +1259,11 @@ def _newton(name: str, direction: Callable, f: Callable, x0: torch.Tensor,
                                    pad(f(z) - z)))
 
     out = picard(newton_step, x0, threshold=threshold, eps=eps,
-                 keep_trace=keep_trace, lanes=lanes)
+                 keep_trace=keep_trace, lanes=lanes, loop="host")
     return out._replace(calls=f.n, jvps=jvp.n)
 
 
+@_counts_reads
 def newton(f: Callable, x0: torch.Tensor, threshold: int = 50,
            eps: float = 1e-5, stop_mode: str = "rel",
            keep_trace: bool = False, lanes: Optional[Lanes] = None,
@@ -955,6 +1295,7 @@ GMRES_TOL = 1e-5
 NEWTON_KRYLOV_INNER = 20
 
 
+@_counts_reads
 def newton_krylov(f: Callable, x0: torch.Tensor, threshold: int = 50,
                   eps: float = 1e-5, stop_mode: str = "rel",
                   inner_iters: int = NEWTON_KRYLOV_INNER,
@@ -1007,7 +1348,7 @@ def _gmres(A: Callable, b: torch.Tensor, restart: int) -> torch.Tensor:
     x0 = torch.zeros_like(b)
     unit_r, r_norm = _safe_normalize(b - A(x0))
     run = r_norm > GMRES_TOL * _lane_norm(b)
-    active = run.cpu().numpy()
+    active = _fetch(run).numpy()
     if not active.any():
         return x0
     V = b.new_zeros((G, restart + 1, C))
@@ -1025,7 +1366,7 @@ def _gmres(A: Callable, b: torch.Tensor, restart: int) -> torch.Tensor:
         mask = _lane_mask(active, dev)
         V[:, k + 1] = torch.where(mask, unit_v, V[:, k + 1])
         H[:, k] = torch.where(mask, h, H[:, k])
-        active = active & ~(v_norm_1 == 0).cpu().numpy()      # breakdown
+        active = active & ~_fetch(v_norm_1 == 0).numpy()      # breakdown
         k += 1
     beta = b.new_zeros((G, restart + 1))
     beta[:, 0] = r_norm
@@ -1049,6 +1390,8 @@ SOLVERS = {
 }
 # solvers that take ``jvp`` (the adjoint solve passes its exact tangent)
 JVP_SOLVERS = ("newton", "newton_krylov")
+# solvers that take ``loop`` (the carried loop, or the host loop)
+LOOP_SOLVERS = ("broyden", "forward_iteration", "picard")
 
 
 def get_solver(name: str) -> Callable:

@@ -44,7 +44,9 @@ ITERS = 4
 # each mode's detail keys beyond bench.py's (but pallas_mp): the port's
 # measurement keys, and the mode's own
 PORT_KEYS = {"launches", "device_s", "busy", "card"}
-MODE_KEYS = {"inference": {"rcm"}, "train": {"ckpt", "steps", "rcm"},
+MODE_KEYS = {"inference": {"rcm", "loop", "host_reads", "graphs",
+                           "capture_s"},
+             "train": {"ckpt", "steps", "rcm"},
              "partition": {"backend"}}
 METRICS = {"inference": "psignn_fixed_point_edges_per_s",
            "train": "psignn_train_step_seconds",
