@@ -1,0 +1,8 @@
+"""device_idle_pct.solve: share of the profiled slice with nothing on the
+card."""
+
+from benchmark.benchlib import readers
+
+
+def read(run):
+    return readers.device_idle_pct(run)

@@ -1,0 +1,8 @@
+"""fw_roofline.solve: share of its roofline the forward message-passing
+kernel reaches in the profiled slice."""
+
+from benchmark.benchlib import readers
+
+
+def read(run):
+    return readers.fw_roofline_pct(run)
