@@ -37,7 +37,8 @@ package so each counterpart is easy to find:
              growing-geometry sweep, the out-of-distribution geometry zoo
              and the several-initialisations study
   compat   — reference ``.pt`` checkpoints → port models
-  profiling — ``torch.profiler`` traces, best-of timing, edges/s
+  profiling — the program's spans (recorded under ``torch.profiler``),
+              its traces and device time, best-of timing
   entry    — one training forward on one card, and the multi-rank dry run
 
 The package imports torch, numpy and scipy only — never JAX or the JAX

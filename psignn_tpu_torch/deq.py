@@ -25,6 +25,11 @@ passes the group's ``reduce`` and ``sync`` hooks (``solvers``) to the
 forward solve, to the adjoint solve (``deq_attach_dist``) and to the
 Hutchinson loss (``jac_loss_probe``).
 
+Spans (``profiling.span``, recorded under a profiler): ``deq.forward``,
+the forward solve; ``deq.adjoint``, the adjoint solve in the backward
+hook (on the card, on autograd's device thread); ``deq.jac``, the
+Hutchinson estimate.
+
 Random probes (Hutchinson, power method) come from an explicit
 ``torch.Generator``; they are drawn on the generator's device and moved
 to ``h``'s, so a CPU generator gives the same probes on any device.
@@ -36,6 +41,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from . import profiling
 from .solvers import (JVP_SOLVERS, LOOP_SOLVERS, Lanes, SolverResult,
                       get_solver)
 
@@ -100,7 +106,7 @@ def fixed_point_forward(f: Callable, h_init: torch.Tensor, graph,
     kw = _solver_kwargs(cfg, lanes)
     if loop is not None:
         kw["loop"] = loop
-    with torch.no_grad():
+    with torch.no_grad(), profiling.span("deq.forward"):
         h0 = h_init.detach()
         return solver(lambda h: f(h, h0, graph), h0, threshold=cfg.fw_thres,
                       eps=cfg.fw_tol, keep_trace=keep_trace,
@@ -142,9 +148,10 @@ def deq_attach(f: Callable, cfg: DEQConfig, h_star: torch.Tensor,
             kw["jvp"] = lambda y, v: vjp(v)
         if cfg.solver in LOOP_SOLVERS:
             kw["loop"] = "host"          # f is an autograd VJP: not carried
-        out = solver(lambda y: vjp(y) + g, torch.zeros_like(g),
-                     threshold=cfg.bw_thres, eps=cfg.bw_tol, reduce=reduce,
-                     sync=sync, **kw)
+        with profiling.span("deq.adjoint"):
+            out = solver(lambda y: vjp(y) + g, torch.zeros_like(g),
+                         threshold=cfg.bw_thres, eps=cfg.bw_tol,
+                         reduce=reduce, sync=sync, **kw)
         adjoint.stats = solve_stats(out)
         return out.result
 
@@ -209,10 +216,11 @@ def jac_loss_estimate(f: Callable, h_star: torch.Tensor, h_init: torch.Tensor,
     if denom is None:
         denom = h_star.numel()
     total = 0.0
-    for _ in range(vecs):
-        total = total + jac_loss_probe(f, h_star, h_init, graph,
-                                       _normal(h_star, generator), denom,
-                                       lanes)
+    with profiling.span("deq.jac"):
+        for _ in range(vecs):
+            total = total + jac_loss_probe(f, h_star, h_init, graph,
+                                           _normal(h_star, generator),
+                                           denom, lanes)
     return total / vecs
 
 

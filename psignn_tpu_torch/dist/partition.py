@@ -33,6 +33,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..kernels.fused_mp import MPCsr, fused_message_passing, pack_csr
 from .multihost import Mesh
 
@@ -73,9 +74,11 @@ def apply_node_permutation(sample: Dict[str, np.ndarray],
 def rcm_ordered(sample: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """``sample`` with its nodes in reverse Cuthill-McKee order, as JAX
     puts each sample in that order before its fused kernels
-    (``reader.py:288-295``, ``bench.py:99-104``)."""
-    return apply_node_permutation(sample, rcm_permutation(
-        sample["senders"], sample["receivers"], sample["x"].shape[0]))
+    (``reader.py:288-295``, ``bench.py:99-104``); the span
+    ``graph.rcm``."""
+    with profiling.span("graph.rcm"):
+        return apply_node_permutation(sample, rcm_permutation(
+            sample["senders"], sample["receivers"], sample["x"].shape[0]))
 
 
 # ------------------------------------------------------- edge-sharded ops

@@ -27,7 +27,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import profiling, resolve_device
 from .kernels.fused_mp import MPCsr, pack_csr
 
 
@@ -88,9 +88,15 @@ def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
                  dtype=np.float32) -> Graph:
     """Concatenate per-sample numpy dicts (``data.reader`` format) into one
     Graph on ``device`` (default: ``default_device()``).  Index arrays are
-    per-sample local and are offset here."""
-    device = resolve_device(device)
+    per-sample local and are offset here.  The span ``graph.batch`` holds
+    ``graph.csr`` (``pack_csr``) and a ``graph.copy`` for each array
+    copied to ``device``."""
+    with profiling.span("graph.batch"):
+        return _batch_graphs(samples, resolve_device(device), dtype)
 
+
+def _batch_graphs(samples: Sequence[Dict[str, np.ndarray]],
+                  device: torch.device, dtype) -> Graph:
     def cat(key, width, dt=dtype):
         return np.concatenate([np.asarray(s[key], dt).reshape(-1, width)
                                for s in samples])
@@ -118,7 +124,8 @@ def batch_graphs(samples: Sequence[Dict[str, np.ndarray]], device=None,
     dcol = 0 if tags.shape[1] == 1 else 1
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        with profiling.span("graph.copy"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     extra = {k: t(v) for k, v in optional.items()}
     if tags.shape[1] == 3:

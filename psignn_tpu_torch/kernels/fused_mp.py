@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import build
+from .. import profiling
 
 KERNEL = "fused_mp_fwd"
 KERNEL_BWD = "fused_mp_bwd"
@@ -98,21 +99,22 @@ def pack_csr(senders: np.ndarray, receivers: np.ndarray,
     ``direction='to'`` aggregates at receivers (x_i = receiver), ``'from'``
     at senders.  Self-loops and masked edges are dropped; the stable sort
     keeps each row's edges in COO order.  ``reverse()`` of the result is
-    the packing of the other direction."""
+    the packing of the other direction.  The span ``graph.csr``."""
     if direction not in ("to", "from"):
         raise ValueError(direction)
-    senders = np.asarray(senders, np.int64)
-    receivers = np.asarray(receivers, np.int64)
-    keep = senders != receivers
-    if edge_mask is not None:
-        keep &= np.asarray(edge_mask, bool)
-    agg = (receivers if direction == "to" else senders)[keep]
-    oth = (senders if direction == "to" else receivers)[keep]
-    ea = np.asarray(edge_attr, np.float32)[keep]
-    if n_nodes >= 2 ** 31 or len(agg) >= 2 ** 31:
-        raise ValueError("CSR indices exceed int32")
-    return MPCsr(*_rows(agg, oth, ea, n_nodes, device),
-                 *_rows(oth, agg, ea, n_nodes, device))
+    with profiling.span("graph.csr"):
+        senders = np.asarray(senders, np.int64)
+        receivers = np.asarray(receivers, np.int64)
+        keep = senders != receivers
+        if edge_mask is not None:
+            keep &= np.asarray(edge_mask, bool)
+        agg = (receivers if direction == "to" else senders)[keep]
+        oth = (senders if direction == "to" else receivers)[keep]
+        ea = np.asarray(edge_attr, np.float32)[keep]
+        if n_nodes >= 2 ** 31 or len(agg) >= 2 ** 31:
+            raise ValueError("CSR indices exceed int32")
+        return MPCsr(*_rows(agg, oth, ea, n_nodes, device),
+                     *_rows(oth, agg, ea, n_nodes, device))
 
 
 def _edge_rows(csr: MPCsr, device) -> torch.Tensor:

@@ -27,6 +27,11 @@ Counts.  The wrappers of the CUDA kernels count their launches in Python
 the counters named in ``COUNTERS`` are set back after each capture (a
 capture launches nothing) and advanced by the capture's deltas at each
 replay: they stay true counts of what ran on the card.
+
+Spans (``profiling.span``, recorded under a profiler): ``loop.eager``, a
+chunk stepped eagerly; ``loop.replay``, a chunk of replays, holding each
+``loop.capture`` (timed by the readings that ``capture_s`` adds); and
+``loop.read``, the read of ``done`` that ends a chunk.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from typing import Callable, Dict, Hashable, List, NamedTuple, Tuple
 
 import torch
 
+from . import profiling
 from .kernels import fused_mp
 
 # Body iterations a chunk runs between two host reads of ``done``.
@@ -126,33 +132,41 @@ def run_while(body: Callable, carry: Dict, T: int, chunk: int = None,
     graphs: Dict[Hashable, _Graph] = {}
     pool = None
     k = reads = 0
-    capture_s = 0.0
+    capture_ns = 0
     try:
         while k < T:
             n = min(chunk, T - k)
-            for i in range(k, k + n):
-                static = key(i)
-                if not graphs_on or k == 0:
-                    body(carry, static)
-                    continue
-                g = graphs.get(static)
-                if g is None:
-                    if pool is None:
-                        pool = torch.cuda.graph_pool_handle()
-                    t0 = time.perf_counter()
-                    g = graphs[static] = _capture(
-                        body, carry, static, pool,
-                        _capture_stream(torch.cuda.current_device()
-                                        if done.device.index is None
-                                        else done.device.index))
-                    capture_s += time.perf_counter() - t0
-                g.graph.replay()
-                _advance(g.deltas)
+            if not graphs_on or k == 0:
+                with profiling.span("loop.eager"):
+                    for i in range(k, k + n):
+                        body(carry, key(i))
+            else:
+                with profiling.span("loop.replay"):
+                    for i in range(k, k + n):
+                        static = key(i)
+                        g = graphs.get(static)
+                        if g is None:
+                            if pool is None:
+                                pool = torch.cuda.graph_pool_handle()
+                            t0 = time.perf_counter_ns()
+                            g = graphs[static] = _capture(
+                                body, carry, static, pool,
+                                _capture_stream(
+                                    torch.cuda.current_device()
+                                    if done.device.index is None
+                                    else done.device.index))
+                            t1 = time.perf_counter_ns()
+                            capture_ns += t1 - t0
+                            profiling.closed_span("loop.capture", t0, t1)
+                        g.graph.replay()
+                        _advance(g.deltas)
             k += n
             reads += 1
-            if bool(done.item()):
+            with profiling.span("loop.read"):
+                stop = bool(done.item())
+            if stop:
                 break
     finally:
         for g in graphs.values():
             g.graph.reset()
-    return LoopStats(k, reads, len(graphs), capture_s)
+    return LoopStats(k, reads, len(graphs), capture_ns * 1e-9)

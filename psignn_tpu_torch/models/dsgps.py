@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import profiling
 from ..graphs import Graph
 from ..nn import MLP, layer_norm
 from ..ops import (message_passing, mse_masked, mse_masked_stacked,
@@ -238,10 +239,14 @@ def dsgps_inference(model: Dsgps, graph: Graph, cfg: DsgpsConfig,
                     k: Optional[int] = None) -> torch.Tensor:
     """(N, 1) the decoded state after k steps (default ``cfg.k``; the
     growing-geometry study runs k up to 1000), without losses or
-    gradients."""
-    with torch.no_grad():
-        h0 = _encode(model, graph)
+    gradients: the spans ``infer`` ⊃ ``infer.encode``, ``infer.unroll``,
+    ``infer.decode``."""
+    with torch.no_grad(), profiling.span("infer"):
+        with profiling.span("infer.encode"):
+            h0 = _encode(model, graph)
         h = h0
-        for _ in range(k or cfg.k):
-            h = model.step(h, h0, graph)
-        return _decode(model, h, graph)
+        with profiling.span("infer.unroll"):
+            for _ in range(k or cfg.k):
+                h = model.step(h, h0, graph)
+        with profiling.span("infer.decode"):
+            return _decode(model, h, graph)

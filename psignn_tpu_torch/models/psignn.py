@@ -34,6 +34,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch import nn
 
+from .. import profiling
 from ..deq import (AdjointSolve, DEQConfig, SolveStats, deq_solve,
                    fixed_point_forward)
 from ..graphs import Graph
@@ -163,11 +164,14 @@ class PsignnInference(NamedTuple):
 
 def psignn_inference(model: Psignn, graph: Graph, cfg: PsignnConfig
                      ) -> PsignnInference:
-    """Encode, solve the fixed point, decode."""
-    with torch.no_grad():
-        h_initial = model.encoder(graph.x) * graph.fnode_mask
+    """Encode, solve the fixed point, decode: the spans ``infer`` ⊃
+    ``infer.encode``, ``deq.forward``, ``infer.decode``."""
+    with torch.no_grad(), profiling.span("infer"):
+        with profiling.span("infer.encode"):
+            h_initial = model.encoder(graph.x) * graph.fnode_mask
         out = fixed_point_forward(model.function, h_initial, graph, cfg.deq)
-        u = model.decoder(out.result) * graph.fnode_mask
+        with profiling.span("infer.decode"):
+            u = model.decoder(out.result) * graph.fnode_mask
     return PsignnInference(u, out.nstep, out.lowest, out.prot_break)
 
 

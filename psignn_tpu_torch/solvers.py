@@ -100,6 +100,7 @@ import numpy as np
 import torch
 import torch.autograd.forward_ad as fwAD
 
+from . import profiling
 from .loop import run_while
 
 
@@ -172,10 +173,12 @@ HOST_READS = 0
 
 
 def _fetch(t: torch.Tensor) -> torch.Tensor:
-    """``t`` on the host: one read, counted."""
+    """``t`` on the host: one read, counted, and the span
+    ``solver.read``."""
     global HOST_READS
     HOST_READS += 1
-    return t.cpu()
+    with profiling.span("solver.read"):
+        return t.cpu()
 
 
 def _host(*scalars: torch.Tensor) -> np.ndarray:

@@ -23,6 +23,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 
+from .. import profiling
 from ..deq import SolveStats
 from ..dist.dp import dp_value_and_grad
 from ..dist.multihost import Mesh
@@ -76,7 +77,16 @@ def train_step(model: Psignn, opts: Sequence[torch.optim.Optimizer],
     step's ``fw`` and ``bw`` then hold per-graph arrays.  With ``mesh``,
     ``graph`` is the rank's shard and the step is data-parallel: the
     losses and the solves' (lowest, nstep) are the ranks' means, ``calls``
-    the rank's own."""
+    the rank's own.  The root span ``train.step`` holds
+    ``train.forward``, ``train.backward``, ``train.optim`` and
+    ``train.read`` (one device)."""
+    with profiling.span("train.step"):
+        return _train_step(model, opts, graph, cfg, lrs, clip, jac_weight,
+                           generator, stacked, mesh)
+
+
+def _train_step(model, opts, graph, cfg, lrs, clip, jac_weight, generator,
+                stacked, mesh) -> StepResult:
     for opt in opts:
         opt.zero_grad(set_to_none=True)
     forward = psignn_forward_stacked if stacked else psignn_forward
@@ -93,15 +103,20 @@ def train_step(model: Psignn, opts: Sequence[torch.optim.Optimizer],
 
         loss_f, scalars, bw = dp_value_and_grad(loss_fn, mesh, sink=True)(
             model, graph)
-        gnorm = apply_gradients(model.parameters(), opts, lrs, clip)
+        with profiling.span("train.optim"):
+            gnorm = apply_gradients(model.parameters(), opts, lrs, clip)
         fw = SolveStats(scalars["fw_lowest"], scalars["fw_nstep"],
                         outs[0].fw.calls)
         return StepResult(loss_f, _scalars(scalars), float(gnorm), fw, bw)
-    out = forward(model, graph, cfg, generator, training=True)
-    loss = psignn_loss(out.losses, jac_weight)
-    loss.backward()
-    gnorm = apply_gradients(model.parameters(), opts, lrs, clip)
-    loss_f, gnorm_f, scalars = _host(loss, gnorm, out.losses)
+    with profiling.span("train.forward"):
+        out = forward(model, graph, cfg, generator, training=True)
+        loss = psignn_loss(out.losses, jac_weight)
+    with profiling.span("train.backward"):
+        loss.backward()
+    with profiling.span("train.optim"):
+        gnorm = apply_gradients(model.parameters(), opts, lrs, clip)
+    with profiling.span("train.read"):
+        loss_f, gnorm_f, scalars = _host(loss, gnorm, out.losses)
     return StepResult(loss_f, scalars, gnorm_f, out.fw, out.adjoint.stats)
 
 
