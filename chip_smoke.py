@@ -1518,17 +1518,19 @@ def mp_per_call(cfg) -> int:
     return (3 if cfg.bc_mode == "mixed" else 2) * cfg.n_layers
 
 
-def expected_launches(res, cfg) -> tuple[int, int]:
+def expected_launches(res, cfg, linearized: bool = True) -> tuple[int, int]:
     """(forward, backward) kernel launches one train step implies:
     ``mp_per_call`` per f_θ call — the forward solve's calls and its JVPs
     (Newton's: forward-mode AD evaluates f_θ on dual tensors), the tracked
-    application and the Jacobian loss's; and as many per VJP of f_θ — each
-    adjoint iteration's and adjoint JVP's (Newton's: the VJP is the affine
-    adjoint map's tangent), the route of the adjoint solution into the
-    parameters, the Hutchinson VJP and its own second-order backward
-    through f_θ's forward."""
+    application, the Jacobian loss's and, ``linearized`` (f_θ's own
+    ``linearize``; not the partitioned solve's wrapper), the adjoint's
+    linearization at h*; and as many per VJP of f_θ — each adjoint
+    iteration's and adjoint JVP's (Newton's: the VJP is the affine adjoint
+    map's tangent), the route of the adjoint solution into the parameters,
+    the Hutchinson VJP and its own second-order backward through f_θ's
+    forward."""
     k = mp_per_call(cfg)
-    return (k * (res.fw.calls + res.fw.jvps + 2),
+    return (k * (res.fw.calls + res.fw.jvps + 2 + int(linearized)),
             k * (res.bw.calls + res.bw.jvps + 3))
 
 
@@ -2842,7 +2844,8 @@ def job_partitioned_train_step(samples: list, device: str) -> dict:
             loss=res.loss, losses=res.losses, grad_norm=res.grad_norm,
             fw=stats(res.fw), bw=stats(res.bw), seconds=seconds,
             launches=launches,
-            expected_launches=expected_launches(res, cfg), n_loc=pg.n_loc,
+            expected_launches=expected_launches(res, cfg, linearized=False),
+            n_loc=pg.n_loc,
             halo=pg.halo,
             grads={k: p.grad.detach().cpu().numpy()
                    for k, p in model.named_parameters()})

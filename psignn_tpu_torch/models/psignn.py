@@ -23,13 +23,17 @@ Port of ``psignn_tpu/models/psignn.py`` (``PsignnConfig``, ``psignn_init``,
 * ``psignn_forward_stacked``: the same with one DEQ solve per graph of the
   batch and every loss averaged over the graphs (``--stacked_batch``);
 * ``psignn_iterative_inference``: the decoded iterate trace with its
-  per-iterate metrics.
+  per-iterate metrics;
+* ``UpdateFunction.linearize``: f_θ at a point with what its backward
+  needs kept, and the explicit VJP v ↦ Jᵀv in h (JAX's ``vjp_fn``) as
+  plain tensor operations and the backward kernel, which the adjoint solve
+  runs (``deq.deq_attach``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -39,9 +43,9 @@ from ..deq import (AdjointSolve, DEQConfig, SolveStats, deq_solve,
                    fixed_point_forward)
 from ..graphs import Graph
 from ..nn import MLP, layer_norm, linear
-from ..ops import (message_passing, mse_masked, mse_masked_per_graph,
-                   mse_masked_stacked, residual_loss, residual_loss_stacked,
-                   residual_per_graph)
+from ..ops import (message_passing, message_passing_vjp, mse_masked,
+                   mse_masked_per_graph, mse_masked_stacked, residual_loss,
+                   residual_loss_stacked, residual_per_graph)
 from ..solvers import Lanes
 
 
@@ -114,12 +118,15 @@ class UpdateFunction(nn.Module):
             self.update_neumann = MLP([2 * D + P + 2, D, D], generator,
                                       device)
 
-    def forward(self, h: torch.Tensor, h_initial: torch.Tensor,
-                graph: Graph) -> torch.Tensor:
+    def _check_graph(self, graph: Graph) -> None:
         if self.mixed and (graph.neumann_mask is None
                            or graph.unit_normal_vector is None):
             raise ValueError("the mixed Ψ-GNN needs a mixed graph: 3-column "
                              "one-hot tags and unit_normal_vector")
+
+    def forward(self, h: torch.Tensor, h_initial: torch.Tensor,
+                graph: Graph) -> torch.Tensor:
+        self._check_graph(graph)
         last = len(self.layers) - 1
         for k, layer in enumerate(self.layers):
             mp_to = message_passing(layer.phi_to, h, graph, "to")
@@ -140,6 +147,119 @@ class UpdateFunction(nn.Module):
             h = torch.where(graph.dirichlet_mask > 0, h_initial, h_next)
             h = h * graph.fnode_mask
         return h
+
+    def linearize(self, h: torch.Tensor, h_initial: torch.Tensor,
+                  graph: Graph) -> Callable[[torch.Tensor], torch.Tensor]:
+        """v ↦ Jᵀv, J = ∂f_θ/∂h at ``h`` (JAX's ``vjp_fn`` of f in h).
+
+        Runs f_θ once at ``h``, without autograd, and keeps what its
+        backward needs: each layer's input and concat rows, the gate α,
+        the update MLPs' ReLU masks, LayerNorm's normalised rows and
+        reciprocal standard deviation, and the masks.  The returned VJP is
+        plain tensor operations and, for each message passing, the
+        backward kernel's ``dh`` (``ops.message_passing_vjp``).  It
+        allocates only its own temporaries and reads only tensors that
+        exist before it is first called, so a carried solve can capture it
+        in a CUDA graph."""
+        self._check_graph(graph)
+        last = len(self.layers) - 1
+        D = h.shape[-1]
+        # rows a layer's output passes a cotangent back to: real nodes off
+        # the Dirichlet reset (0/1, so the products are exact)
+        free = graph.fnode_mask * (graph.dirichlet_mask <= 0).to(h.dtype)
+        neu = (graph.neumann_mask > 0).to(h.dtype) if self.mixed else None
+        gate_w = self.alpha.weight.detach()                    # (1, C)
+        steps = []
+        with torch.no_grad():
+            h = h.detach().contiguous()
+            for k, layer in enumerate(self.layers):
+                mp_to = message_passing(layer.phi_to, h, graph, "to")
+                mp_from = message_passing(layer.phi_from, h, graph, "from")
+                concat = torch.cat([h, mp_to, mp_from, graph.prb_data],
+                                   dim=-1)
+                alpha = torch.sigmoid(self.alpha(concat))
+                upd, upd_vjp = _mlp_linearized(layer.update, concat)
+                h_next = h + alpha * upd
+                neu_vjp = ln_vjp = None
+                if self.mixed:
+                    mp_neu = message_passing(self.phi_neumann, h, graph,
+                                             "from")
+                    upd_neu, neu_vjp = _mlp_linearized(
+                        self.update_neumann,
+                        torch.cat([h, mp_neu, graph.prb_data,
+                                   graph.unit_normal_vector], dim=-1))
+                    h_next = torch.where(graph.neumann_mask > 0, upd_neu,
+                                         h_next)
+                if k == last:
+                    h_next, ln_vjp = _layer_norm_linearized(self.laynorm,
+                                                            h_next)
+                steps.append((layer, h, alpha, upd, upd_vjp, neu_vjp,
+                              ln_vjp))
+                h = torch.where(graph.dirichlet_mask > 0, h_initial, h_next)
+                h = (h * graph.fnode_mask).contiguous()
+
+        def vjp(v: torch.Tensor) -> torch.Tensor:
+            for layer, h, alpha, upd, upd_vjp, neu_vjp, ln_vjp in \
+                    reversed(steps):
+                g = v * free                                 # ∂/∂h_next
+                if ln_vjp is not None:
+                    g = ln_vjp(g)
+                dh = 0.0
+                if neu_vjp is not None:                      # Neumann rows
+                    d_neu = neu_vjp(g * neu)
+                    dh = d_neu[:, :D] + message_passing_vjp(
+                        self.phi_neumann, h, graph, "from",
+                        d_neu[:, D:2 * D])
+                    g = g * (1.0 - neu)
+                # h_next = h + α·update(concat), α = σ(alpha(concat))
+                d_gate = (torch.sum(g * upd, dim=-1, keepdim=True)
+                          * alpha * (1.0 - alpha))
+                d_cat = upd_vjp(alpha * g) + d_gate * gate_w
+                v = (g + dh + d_cat[:, :D]
+                     + message_passing_vjp(layer.phi_to, h, graph, "to",
+                                           d_cat[:, D:2 * D])
+                     + message_passing_vjp(layer.phi_from, h, graph, "from",
+                                           d_cat[:, 2 * D:3 * D]))
+            return v
+
+        return vjp
+
+
+def _mlp_linearized(mlp: MLP, x: torch.Tensor):
+    """(mlp(x), g ↦ the VJP in x at x), the ReLU masks kept."""
+    last = len(mlp.layers) - 1
+    masks = []
+    for i, lin in enumerate(mlp.layers):
+        x = lin(x)
+        if i < last:
+            masks.append((x > 0).to(x.dtype))
+            x = torch.relu(x)
+    weights = [lin.weight.detach() for lin in mlp.layers]
+
+    def vjp(g: torch.Tensor) -> torch.Tensor:
+        for i in range(last, -1, -1):
+            if i < last:
+                g = g * masks[i]
+            g = g @ weights[i]
+        return g
+
+    return x, vjp
+
+
+def _layer_norm_linearized(ln: nn.LayerNorm, x: torch.Tensor):
+    """(ln(x), g ↦ the VJP in x at x): the normalised rows and the
+    reciprocal standard deviation kept (biased variance, ``ln.eps``)."""
+    var, mean = torch.var_mean(x, dim=-1, unbiased=False, keepdim=True)
+    rstd = torch.rsqrt(var + ln.eps)
+    xhat = (x - mean) * rstd
+    w = ln.weight.detach()
+
+    def vjp(g: torch.Tensor) -> torch.Tensor:
+        gx = g * w
+        return rstd * (gx - torch.mean(gx, dim=-1, keepdim=True)
+                       - xhat * torch.mean(gx * xhat, dim=-1, keepdim=True))
+
+    return xhat * w + ln.bias.detach(), vjp
 
 
 class Psignn(nn.Module):

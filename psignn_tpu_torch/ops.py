@@ -4,7 +4,9 @@ Port of ``psignn_tpu/ops.py`` (``message_passing``, ``spmv``,
 ``masked_mean``, ``mse_masked``, ``residual_loss``, ``residual_per_graph``,
 ``mse_per_graph``, their masked per-graph means (the losses of the
 stacked forward), the stacked per-iteration losses of the unrolled models
-and DSS's BC-encoded residual).  Reference semantics:
+and DSS's BC-encoded residual), and ``message_passing_vjp``, the
+explicit cotangent of ``h`` that f_θ's ``linearize`` needs (JAX takes it
+by ``jax.vjp``).  Reference semantics:
 
 * ``Phi_to`` aggregates at receivers with x_i = receiver features,
   ``Phi_from`` at senders with x_i = sender features;
@@ -20,15 +22,13 @@ from __future__ import annotations
 import torch
 
 from .graphs import Graph
+from .kernels import fused_mp
 from .kernels.fused_mp import fused_message_passing
 from .nn import MLP
 
 
-def message_passing(mlp: MLP, h: torch.Tensor, graph: Graph,
-                    direction: str) -> torch.Tensor:
-    """One directional aggregation (Phi_to / Phi_from) of the 2-layer edge
-    MLP ``mlp``.  The fused kernel's wrapper picks the CUDA kernel or the
-    plain version by the device of ``h``."""
+def _edge_mlp(mlp: MLP, graph: Graph, direction: str):
+    """(csr, first layer, second layer) of a message passing."""
     if direction == "to":
         csr = graph.mp_to
     elif direction == "from":
@@ -37,9 +37,28 @@ def message_passing(mlp: MLP, h: torch.Tensor, graph: Graph,
         raise ValueError(direction)
     if len(mlp.layers) != 2:
         raise ValueError("message passing takes a 2-layer edge MLP")
-    l1, l2 = mlp.layers
+    return (csr, *mlp.layers)
+
+
+def message_passing(mlp: MLP, h: torch.Tensor, graph: Graph,
+                    direction: str) -> torch.Tensor:
+    """One directional aggregation (Phi_to / Phi_from) of the 2-layer edge
+    MLP ``mlp``.  The fused kernel's wrapper picks the CUDA kernel or the
+    plain version by the device of ``h``."""
+    csr, l1, l2 = _edge_mlp(mlp, graph, direction)
     return fused_message_passing(l1.weight, l1.bias, l2.weight, l2.bias, h,
                                  csr)
+
+
+def message_passing_vjp(mlp: MLP, h: torch.Tensor, graph: Graph,
+                        direction: str, g: torch.Tensor) -> torch.Tensor:
+    """(N, D) cotangent of ``h`` of ``message_passing`` for the output
+    cotangent ``g``, without autograd: ``dh`` of the backward kernel
+    (``fused_mp.fused_mp_vjp``; the plain version on the CPU)."""
+    csr, l1, l2 = _edge_mlp(mlp, graph, direction)
+    return fused_mp.fused_mp_vjp(
+        l1.weight.detach(), l1.bias.detach(), l2.weight.detach(),
+        l2.bias.detach(), h, csr, g.contiguous())[4]
 
 
 def spmv(graph: Graph, u: torch.Tensor) -> torch.Tensor:

@@ -516,8 +516,9 @@ def test_psignn_solve_matches_jax_deq_forward(trained_small):
 
 
 def test_deq_adjoint_keeps_the_host_loop(monkeypatch):
-    """The forward solve follows the route (None), the adjoint solve is
-    asked for the host loop: its f is an autograd VJP."""
+    """The forward solve follows the route (None), the adjoint solve of
+    an f without ``linearize`` is asked for the host loop: its f is an
+    autograd VJP (f_θ's own: ``test_torch_adjoint.py``)."""
     asked = []
     real = solvers.broyden
 
