@@ -10,11 +10,17 @@ samples with the frozen generator and hands it to the program's loader
 sample put in RCM order, the batches built once on the card, dealt by the
 seed, and each later pass in an order drawn from it).  Set-up then runs
 the first pass over the batches through the window's own step
-(``train.step.train_step``), every batch shape once; the plain reference
-follows its first three steps after the window.  The window runs step
-after step until ``seconds`` have passed, and the step in flight then
-completes and closes it.  A step is timed on the host clock from its call
-to its loss on the host.  With ``trace``, two steps about a third into
+(``train.step.train_step``), every batch shape once.  During its first
+three steps only, a forward pre-hook on the module the configuration
+names (``train_capture``: f_θ) keeps on the card the input of the step's
+first tracked call, which is the step's fixed point h*, and the
+parameters at each step's start are copied to the host; the hook is gone
+before the window.  After the window the plain reference follows those
+three steps at the program's h*, solving no forward fixed point itself,
+and measures each h*'s residual under the parameters of its step.  The
+window runs step after step until ``seconds`` have passed, and the step
+in flight then completes and closes it.  A step is timed on the host
+clock from its call to its loss on the host.  With ``trace``, two steps about a third into
 the window are profiled (device activity only).
 """
 
@@ -34,6 +40,7 @@ from .record import Run, Step
 
 PROFILED_STEPS = 2
 JUDGED_STEPS = 3
+NUMBERS = ("train_residual", "first_loss_gap", "grad_gap", "change_gap")
 
 
 def leaf_name(name: str) -> str:
@@ -48,6 +55,14 @@ def leaf_name(name: str) -> str:
     if parts[1] == "alpha":
         return f"function/alpha/{kind}"
     return f"function/layers/{parts[2]}/{parts[3]}/{parts[5]}/{kind}"
+
+
+def reference_leaves(model) -> Dict[str, torch.Tensor]:
+    """The model's parameters on the host by reference leaf, in the
+    checkpoint's layout (a linear layer's weight (in, out))."""
+    return {leaf_name(n): (p.detach().T if leaf_name(n).endswith("/w")
+                           else p.detach()).cpu().clone()
+            for n, p in model.named_parameters()}
 
 
 def loader_seed(seed: int) -> int:
@@ -112,7 +127,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
     lrs = (tcfg["lr_deq"], tcfg["lr_ae"])
     t_pool = time.perf_counter()
 
-    def step(graph, sel, spans=None) -> Step:
+    def step(graph, sel, spans=None, fw=None) -> Step:
         f0, b0 = fused_mp.LAUNCHES, fused_mp.BWD_LAUNCHES
         t0 = time.perf_counter()
         w0 = time.time_ns()
@@ -122,23 +137,38 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
         t1 = time.perf_counter()
         if spans is not None:
             spans.append(("train_step", w0, time.time_ns()))
+        if fw is not None:
+            fw.append((float(out.fw.lowest), int(out.fw.nstep)))
         return Step(samples=len(sel), seconds=t1 - t0, loss=loss,
                     fw_launches=fused_mp.LAUNCHES - f0,
                     bw_launches=fused_mp.BWD_LAUNCHES - b0)
 
-    before = {leaf_name(n): p.detach().cpu().clone()
-              for n, p in model.named_parameters()}
-    first = {}
+    first = {"losses": [], "fw": [], "starts": []}
+    kept: Dict[str, torch.Tensor] = {}
+    h_stars: List[torch.Tensor] = []
+
+    def keep_h_star(_module, args):
+        if "h" not in kept and args[0].requires_grad:
+            kept["h"] = args[0].detach().clone()
+
+    hook = model.get_submodule(config["train_capture"]) \
+        .register_forward_pre_hook(keep_h_star)
     for k, (graph, sel) in enumerate(zip(loader, loader.batch_order(0))):
-        s = step(graph, sel)
         if k < JUDGED_STEPS:
-            first.setdefault("losses", []).append(s.loss)
+            first["starts"].append(reference_leaves(model))
+            s = step(graph, sel, fw=first["fw"])
+            first["losses"].append(s.loss)
+            if "h" in kept:
+                h_stars.append(kept.pop("h"))
+        else:
+            s = step(graph, sel)
         if k == 0:
             first["grad"] = _first_gradient(model, opts)
         if k == JUDGED_STEPS - 1:
+            hook.remove()
             first["change"] = {
-                leaf_name(n): p.detach().cpu() - before[leaf_name(n)]
-                for n, p in model.named_parameters()}
+                k: p - first["starts"][0][k]
+                for k, p in reference_leaves(model).items()}
     _sync(dev)
     print(f"benchmark: set-up: start and imports "
           f"{t_imported - t_process:.3f} s, checkpoint "
@@ -184,13 +214,16 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
         rec.memory_peak_bytes = int(torch.cuda.max_memory_allocated(dev))
     judged_batches = [[samples[i] for i in sel]
                       for sel in loader.batch_order(0)[:JUDGED_STEPS]]
-    del model, opts, loader
+    first["h_stars"] = [h.cpu() for h in h_stars]
+    del model, opts, loader, h_stars
     graph = None
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    rec.judged = [judge(ref, config, judged_batches, first, seed, dev)]
+    steps: Dict[str, list] = {}
+    rec.judged = [judge(ref, config, judged_batches, first, seed, dev,
+                        steps), steps]
     rec.checks = {k: {"value": float(v),
                       "limit": float(config["limits"][k])}
                   for k, v in rec.judged[0].items()}
@@ -198,34 +231,68 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
 
 
 def reference_side(ref, config: dict, batches: List[list], seed: int,
-                   device, precision: str = "f32") -> dict:
+                   device, precision: str = "f32", h_stars=None,
+                   starts=None) -> dict:
     """The reference's first steps over ``batches`` (mesh-order samples,
     put in the loader's node order here) from the checkpoint, with the
-    run's probes: its losses, first gradient and change by leaf."""
+    run's probes: at the equilibria ``h_stars`` of the side under test,
+    each measured under the side's parameters ``starts`` of its step
+    (``judge_steps``), or, without them, solving its own (``solve_steps``,
+    the control).  Its losses, residuals, h*, parameters at each step's
+    start, first gradient and change by leaf."""
     from benchmark.reference.common import read_checkpoint, rcm_order
     from .spec import ROOT
     params = read_checkpoint(os.path.join(ROOT, config["checkpoint"]))
     model = ref.Model(params["params"], device, precision)
     g = probe_generator(seed)
-    losses, grad, before, after = ref.train_steps(
-        model, [ref.Batch([rcm_order(s) for s in b], device)
-                for b in batches],
-        lambda _t, shape: torch.randn(shape, generator=g).to(device),
-        config["model"], config["train"])
-    return dict(losses=losses, grad={k: v.cpu() for k, v in grad.items()},
-                change={k: (after[k] - before[k]).cpu() for k in after})
+    args = ([ref.Batch([rcm_order(s) for s in b], device) for b in batches],
+            lambda _t, shape: torch.randn(shape, generator=g).to(device),
+            config["model"], config["train"])
+    out = (ref.solve_steps(model, *args) if h_stars is None
+           else ref.judge_steps(model, args[0], h_stars, starts,
+                                *args[1:]))
+    return dict(losses=out["losses"], residuals=out["residuals"],
+                h_stars=[z.cpu() for z in out["h_stars"]],
+                starts=[{k: v.cpu() for k, v in p.items()}
+                        for p in out["starts"]],
+                grad={k: v.cpu() for k, v in out["grad"].items()},
+                change={k: (out["after"][k] - out["before"][k]).cpu()
+                        for k in out["after"]})
 
 
 def judge(ref, config: dict, batches: List[list], side: dict, seed: int,
-          device) -> Dict[str, float]:
+          device, steps: dict = None) -> Dict[str, float]:
     """The numbers of the side under test (the program's first steps, or
-    the control's) against the reference's."""
-    from benchmark.reference.common import no_tf32
+    the control's) against the reference's at the side's own h* of each
+    step, in ``FixedOrder``; ``steps``, where given, gets each judged
+    step's losses and residuals.  A side that handed no h* of a judged
+    step, or one of another size than its batch, has no equilibrium of
+    that batch to judge: every number reads infinite."""
+    from benchmark.reference.common import FixedOrder, no_tf32
     no_tf32()
-    other = reference_side(ref, config, batches, seed, device)
+    latent = config["model"]["latent_dim"]
+    shapes = [(sum(int(s["x"].shape[0]) for s in b), latent)
+              for b in batches]
+    handed = [tuple(h.shape) for h in side["h_stars"]]
+    if handed != shapes:
+        print(f"benchmark: judged steps: h* of shapes {handed}, the "
+              f"batches' {shapes}", file=sys.stderr)
+        return dict.fromkeys(NUMBERS, float("inf"))
+    t0 = time.perf_counter()
+    with FixedOrder():
+        other = reference_side(ref, config, batches, seed, device,
+                               h_stars=side["h_stars"],
+                               starts=side["starts"])
     numbers = ref.train_numbers(side, other)
-    print(f"benchmark: judged steps: losses {side['losses']!r}, the "
-          f"reference's {other['losses']!r}", file=sys.stderr)
+    if steps is not None:
+        steps.update(losses=side["losses"], ref_losses=other["losses"],
+                     residuals=other["residuals"], fw=side.get("fw"))
+    print(f"benchmark: judged steps in {time.perf_counter() - t0:.3f} s: "
+          f"losses {side['losses']!r}, the "
+          f"reference's {other['losses']!r}; residuals "
+          f"{other['residuals']!r}"
+          + (f", the program's {side['fw']!r}" if "fw" in side else ""),
+          file=sys.stderr)
     print("benchmark: judged steps: " + ", ".join(
         f"{k} {v!r}" for k, v in numbers.items()), file=sys.stderr)
     return numbers

@@ -6,8 +6,10 @@ Everything computes in float32 with TF32 off, or, given
 ``precision="tf32"``, with every matmul's operands rounded to TF32's
 10-bit mantissa first (what a tensor core does to float32 operands; the
 products are summed in float32): the control of the benchmark's
-comparison.  Imports torch, numpy and (for a node order) scipy, nothing
-of the program.
+comparison.  Inside ``FixedOrder()`` every sum of rows into nodes (an
+``index_add_``, the backward of a gather) takes PyTorch's deterministic
+kernels, so a judge repeated from its seed gives the same bits.  Imports
+torch, numpy and (for a node order) scipy, nothing of the program.
 """
 
 from __future__ import annotations
@@ -23,6 +25,25 @@ import torch
 def no_tf32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+class FixedOrder:
+    """A context with PyTorch's deterministic algorithms on inside, as
+    they were after.  On the card ``index_add_`` and the backward of
+    ``x[index]`` otherwise add a node's rows by atomics, in an order that
+    changes each call.  ``warn_only``: cuBLAS asks for
+    ``CUBLAS_WORKSPACE_CONFIG`` before its first call, which the program
+    has made by then; it warns."""
+
+    def __enter__(self):
+        self.was = (torch.are_deterministic_algorithms_enabled(),
+                    torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.was[0],
+                                           warn_only=self.was[1])
 
 
 class _Inert(tuple):

@@ -24,6 +24,12 @@ answer: Broyden's path is chaotic, and two sound solves of one radius-5
 mesh can stop at answers some percent apart.  ``solve`` (plain Broyden,
 the reference code base's algorithm) is the control: the reference put
 in the program's place.
+
+A training run is judged the same way (``judge_steps``): the reference
+follows the program's first steps from the checkpoint at the program's
+own h* of each step, measures its residual, and works out the loss, the
+adjoint solve's gradient and both Adams from there.  ``solve_steps``,
+which solves each step's fixed point itself, is the training control.
 """
 
 from __future__ import annotations
@@ -246,6 +252,18 @@ def leaves(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     return out
 
 
+def with_leaves(tree, values: Dict[str, torch.Tensor], prefix: str = ""):
+    """``tree`` with each leaf replaced by the one ``values`` has at its
+    path (the names of ``leaves``)."""
+    if isinstance(tree, dict):
+        return {k: with_leaves(v, values, f"{prefix}/{k}" if prefix
+                               else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [with_leaves(v, values, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in enumerate(tree)]
+    return values[prefix]
+
+
 def _adam(params, grads, state, lr, t, b1=0.9, b2=0.999, eps=1e-8):
     """torch.optim.Adam's step, written out."""
     for k, p in params.items():
@@ -257,22 +275,29 @@ def _adam(params, grads, state, lr, t, b1=0.9, b2=0.999, eps=1e-8):
         p.data.addcdiv_(m, denom, value=-lr / (1 - b1 ** t))
 
 
-def train_steps(model: Model, batches, probes, cfg: dict, tcfg: dict):
-    """The program's first steps followed from the checkpoint: each step
-    the Broyden forward solve (no gradient), one tracked f_θ whose
-    incoming gradient g is replaced by the solution y of y = Jᵀy + g
-    (Broyden, ``bw_tol`` / ``bw_thres``), the loss = residual + jac_weight
-    · ‖vᵀJ‖²/size (the probe ``v`` of ``probes(step, shape)``) + encoder +
-    autoencoder, the joint clip and the two Adams (function; encoder and
-    decoder).  Returns (losses, the clipped first gradient by leaf,
-    parameters before and after the steps by leaf)."""
+def _steps(model: Model, batches, probes, cfg: dict, tcfg: dict,
+           equilibrium, measured_under=None) -> dict:
+    """The program's first training steps followed from the checkpoint.
+    Each step takes its forward fixed point z from ``equilibrium(t,
+    g_fw, h0)``, measures its residual ‖f(z) − z‖ / (‖f(z)‖ + 1e-9) by
+    the reference's f_θ and encoding under the parameters
+    ``measured_under[t − 1]`` (by leaf; without it, its own), runs one
+    tracked f_θ at z whose incoming gradient g is replaced by the
+    solution y of y = Jᵀy + g
+    (plain Broyden, ``bw_tol`` / ``bw_thres``: a linear system), and takes
+    the loss = residual + jac_weight · ‖vᵀJ‖²/size at z (the probe ``v``
+    of ``probes(step, shape)``) + encoder + autoencoder, the joint clip
+    and the two Adams (function; encoder and decoder).  Returns the
+    losses, the residuals, each step's z and its parameters at the start
+    (``starts``), the clipped first gradient and the parameters before and
+    after the steps, by leaf."""
     params = leaves(model.p)
     for p in params.values():
         p.requires_grad_(True)
-    before = {k: p.detach().clone() for k, p in params.items()}
     state: Dict[str, tuple] = {}
-    losses, first_grad = [], None
+    losses, residuals, zs, starts, first_grad = [], [], [], [], None
     for t, batch in enumerate(batches, start=1):
+        starts.append({k: p.detach().clone() for k, p in params.items()})
         h_init = model.encode(batch.x)
         shape = h_init.shape
         h0 = h_init.detach()
@@ -283,9 +308,15 @@ def train_steps(model: Model, batches, probes, cfg: dict, tcfg: dict):
                     - h).reshape(-1)
 
         with torch.no_grad():
-            z, _, _ = broyden(g_fw, h0.reshape(-1), cfg["fw_thres"],
-                              cfg["fw_tol"])
-        h = z.reshape(shape).detach().requires_grad_()
+            z = equilibrium(t, g_fw, h0).reshape(shape)
+            m = model if measured_under is None else Model(
+                with_leaves(model.p, measured_under[t - 1]), model.device,
+                model.precision)
+            fz = m.f(z, m.encode(batch.x), batch.prb, batch.dmask,
+                     batch.edges)
+            residuals.append(_rel(fz - z, fz))
+        zs.append(z)
+        h = z.detach().requires_grad_()
         new_h = model.f(h, h_init, batch.prb, batch.dmask, batch.edges)
 
         def adjoint(grad):
@@ -303,7 +334,7 @@ def train_steps(model: Model, batches, probes, cfg: dict, tcfg: dict):
         handle = new_h.register_hook(adjoint)
         u = model.decode(new_h)
         res = torch.mean(torch.square(batch.spmv(u) - batch.b))
-        hj = z.reshape(shape).detach().requires_grad_()
+        hj = z.detach().requires_grad_()
         out = model.f(hj, h0, batch.prb, batch.dmask, batch.edges)
         (vj,) = torch.autograd.grad(out, hj, probes(t, shape),
                                     create_graph=True)
@@ -331,21 +362,57 @@ def train_steps(model: Model, batches, probes, cfg: dict, tcfg: dict):
                 _adam(sel, grads, state, lr, t)
         losses.append(float(loss.detach()))
     after = {k: p.detach().clone() for k, p in params.items()}
-    return losses, first_grad, before, after
+    return dict(losses=losses, residuals=residuals, h_stars=zs,
+                starts=starts, grad=first_grad, before=starts[0], after=after)
 
+
+def judge_steps(model: Model, batches, h_stars, starts, probes, cfg: dict,
+                tcfg: dict) -> dict:
+    """The steps of ``_steps`` at the side's own equilibria: step t takes
+    ``h_stars[t − 1]`` (the side's h* of that step, in the batch's node
+    order) and solves no forward fixed point.  A second solve is no
+    yardstick: Broyden is chaotic, and where the reference's solve ended
+    elsewhere than the program's, every later number followed it.  Each
+    h*'s residual is measured under the side's own parameters at the
+    start of its step (``starts``, by leaf): the f_θ whose fixed point
+    the side solved.  The reference's own parameters move on by its own
+    Adams, and ``change_gap`` judges where they end."""
+    dev = model.device
+    return _steps(model, batches, probes, cfg, tcfg,
+                  lambda t, _g, _h0: torch.as_tensor(h_stars[t - 1],
+                                                     device=dev),
+                  measured_under=starts)
+
+
+def solve_steps(model: Model, batches, probes, cfg: dict, tcfg: dict
+                ) -> dict:
+    """The steps of ``_steps`` with each forward fixed point solved here
+    by plain Broyden from the encoding (``fw_tol`` / ``fw_thres``): the
+    reference in the program's place, as the control runs it."""
+    def solve(_t, g_fw, h0):
+        z, _, _ = broyden(g_fw, h0.reshape(-1), cfg["fw_thres"],
+                          cfg["fw_tol"])
+        return z
+
+    return _steps(model, batches, probes, cfg, tcfg, solve)
 
 
 def train_numbers(side: dict, ref: dict) -> Dict[str, float]:
     """A training run's first steps (``side``: ``losses``, the first
     ``grad`` and the ``change`` after the steps, by leaf) against the
-    reference's: ``first_loss_gap``, the first step's |L − L_ref| /
-    |L_ref| (the later steps' losses follow the chaotic stop of a solve
-    on a model one fresh Adam step has thrown far, and read up to 20 %
-    apart on sound runs); ``grad_gap`` and ``change_gap``, the worst
+    reference's at the side's own equilibria (``ref``: ``judge_steps``'s
+    with the ``change``): ``train_residual``, the median step's residual
+    of the side's h* by the reference's f_θ and encoding under the side's
+    parameters of that step (the configured Broyden may end a sound solve
+    above ``fw_tol``: on a plateau under 3 · ``fw_tol``, at ``fw_thres``
+    or by its divergence guard, as the first step of two seeds in 39 did
+    on the card; a stop changed from the first step on moves all three);
+    ``first_loss_gap``, the first step's
+    |L − L_ref| / |L_ref|; ``grad_gap`` and ``change_gap``, the worst
     leaf's gap between the two norms over the larger of the reference's
-    norm of that leaf and of the median leaf.  Leaves whose reference gradient is under a
-    thousandth of the median leaf's (moved by round-off alone) are left
-    out."""
+    norm of that leaf and of the median leaf.  Leaves whose reference
+    gradient is under a thousandth of the median leaf's (moved by
+    round-off alone) are left out."""
     def norms(tree):
         return {k: float(torch.linalg.vector_norm(v)) for k, v in
                 tree.items()}
@@ -358,7 +425,8 @@ def train_numbers(side: dict, ref: dict) -> Dict[str, float]:
     g_med = float(np.median(list(g_ref.values())))
     keep = [k for k, v in g_ref.items() if v >= 1e-3 * g_med]
     first, first_ref = side["losses"][0], ref["losses"][0]
-    return {"first_loss_gap": abs(first - first_ref) / abs(first_ref),
+    return {"train_residual": float(np.median(ref["residuals"])),
+            "first_loss_gap": abs(first - first_ref) / abs(first_ref),
             "grad_gap": worst_leaf(g, g_ref, keep),
             "change_gap": worst_leaf(norms(side["change"]),
                                      norms(ref["change"]), keep)}

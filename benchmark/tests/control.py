@@ -59,7 +59,10 @@ def judged(cell, device, traffic=None) -> list:
 
 def train_numbers(cell, device, traffic=None, seed: int = 5) -> dict:
     """The numbers of the reference's first training steps in TF32 in
-    the program's place, on the batches the run seed deals first."""
+    the program's place, on the batches the run seed deals first: it
+    solves each step's fixed point itself and hands its h* and its
+    parameters at each step's start to the judge, as the program's run
+    does."""
     from psignn_tpu_torch.data.reader import GraphLoader
     from benchmark.benchlib import train
     no_tf32()

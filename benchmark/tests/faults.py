@@ -4,7 +4,11 @@ tests (``test_faults.py``) and the readings on the card
 
 * ``fw_tol=<x>``, ``fw_thres=<n>``: the Ψ-GNN forward solve stopped other
   than the configuration states (a looser tolerance, fewer steps), its
-  answer and residual reported honestly;
+  answer and residual reported honestly: a request's solve and a
+  training step's alike; ``fw_tol=<x>@step<k>``: the same from the k-th
+  forward solve of the process on (a training run's k-th step of its
+  first pass); ``fw_thres=<n>@step<k>only``: the k-th solve alone (a
+  stall the configured Broyden can meet on one step of a sound run);
 * ``state_unchanged``: a training step that clips its gradients and
   leaves the parameters as they were;
 * ``half_batch``: each training batch built from its first half of
@@ -28,14 +32,26 @@ def _swap(obj, name: str, value):
         setattr(obj, name, real)
 
 
-def _changed_stop(change: dict):
+@contextlib.contextmanager
+def _changed_stop(change: dict, first: int = 1, last: int = None):
+    """The request path (``models.psignn``) and the training step's
+    ``deq.deq_solve`` (``deq``) each call the forward solve by its own
+    module's name; the stop changes from the ``first``-th call on, up to
+    the ``last``-th where given."""
+    import psignn_tpu_torch.deq as deq
     import psignn_tpu_torch.models.psignn as m
-    real = m.fixed_point_forward
+    real = deq.fixed_point_forward
+    calls = [0]
 
     def changed(f, h_init, graph, cfg, **kw):
-        return real(f, h_init, graph, cfg._replace(**change), **kw)
+        calls[0] += 1
+        if first <= calls[0] <= (last or calls[0]):
+            cfg = cfg._replace(**change)
+        return real(f, h_init, graph, cfg, **kw)
 
-    return _swap(m, "fixed_point_forward", changed)
+    with _swap(m, "fixed_point_forward", changed), \
+            _swap(deq, "fixed_point_forward", changed):
+        yield
 
 
 def _state_unchanged():
@@ -75,8 +91,12 @@ def _leaf_double():
 def planted(name: str):
     """A context in which the program runs with fault ``name``."""
     if "=" in name:
-        key, value = name.split("=")
+        change, _, first = name.partition("@step")
+        key, value = change.split("=")
+        only = first.endswith("only")
+        first = int(first.removesuffix("only") or 1)
         return _changed_stop({key: int(value) if key.endswith("thres")
-                              else float(value)})
+                              else float(value)}, first,
+                             first if only else None)
     return {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
             "leaf_double": _leaf_double}[name]()

@@ -80,11 +80,40 @@ def test_answer_altered_where_produced(cell):
 
 
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch",
-                                   "leaf_double"])
+                                   "leaf_double", "fw_tol=1e-4",
+                                   "fw_tol=1e-4@step2"])
 def test_training_fault(fault):
     """A training step that leaves its state unchanged, trains on half of
-    each batch, or moves one leaf double."""
+    each batch, moves one leaf double, or stops its forward solve at a
+    looser tolerance, from the first step or from the second on (which
+    only ``train_residual`` can see: the judge takes the program's h*;
+    from the second on, the median step's residual sees it where both
+    later solves end above the limit, as they do here).  At the cell's
+    size on the card ``fw_tol`` 5e-5 stops a step at 2.0e-5 to 4.9e-5
+    (``test_run.py``); on this small pool Broyden's last steps
+    fall further (5e-5 stopped the first step at 2.6e-5), so the CPU
+    plants 1e-4, clear of the limit."""
     with planted(fault):
         run = run_small(TRAIN)
     assert run.steps and run.failed == 0
     assert not run.correct, run.checks
+    if fault.startswith("fw_tol"):
+        checks = run.checks["train_residual"]
+        assert checks["value"] > checks["limit"]
+    if fault.endswith("@step2"):
+        assert run.judged[1]["residuals"][0] <= checks["limit"]
+
+
+def test_one_stalled_solve_is_left_to_the_median():
+    """The configured Broyden may end a sound solve above ``fw_tol``, at
+    its threshold, on a plateau or by its divergence guard (on the card,
+    seeds 1279946884 and 1357913577 stall the first step at 2.2e-4 and
+    5.3e-5): ``train_residual``, the median step's, reads the other two
+    steps, and the other numbers judge the stalled step at its own h*."""
+    with planted("fw_thres=3@step1only"):
+        run = run_small(TRAIN)
+    limit = run.checks["train_residual"]["limit"]
+    residuals = run.judged[1]["residuals"]
+    assert residuals[0] > 100 * limit
+    assert max(residuals[1:]) <= limit
+    assert run.correct, run.checks

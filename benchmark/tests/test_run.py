@@ -83,3 +83,40 @@ def test_stop_changed_fails_at_the_cells_size(cuda, change):
                         str(cuda), time.perf_counter())
     assert run.requests and run.failed == 0
     assert not run.correct, run.checks
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("fault", ["state_unchanged", "half_batch",
+                                   "leaf_double", "fw_tol=5e-5",
+                                   "fw_thres=10@step2"])
+def test_training_fault_fails_at_the_cells_size(cuda, fault):
+    """Each fault a training step can have, its forward solve stopped at
+    a looser tolerance, and its solves cut short from the second step on
+    (steps 2 and 3 need 16 to 393 f_θ calls), is not correct at the
+    cell's size.  (``fw_tol=5e-5@step2`` is not among them: its step-2
+    solve may end under ``fw_tol`` all the same, and the median step's
+    residual then sees one step of three.)"""
+    import time
+    from faults import planted
+    from benchmark.benchlib import train
+    from benchmark.benchlib.spec import load_cell
+    with planted(fault):
+        run = train.run(load_cell(CELLS[2]), 2718281829, 2.0, False,
+                        str(cuda), time.perf_counter())
+    assert run.steps and run.failed == 0
+    assert not run.correct, run.checks
+
+
+@pytest.mark.chip
+def test_a_first_solve_that_stalls_is_sound_at_the_cells_size(cuda):
+    """On seed 1279946884 the program's first solve, from the checkpoint,
+    stalls at 2.2e-4 (its best iterate at step 73): the configured
+    Broyden's own stop, one step of three, and the run is correct."""
+    import time
+    from benchmark.benchlib import train
+    from benchmark.benchlib.spec import load_cell
+    run = train.run(load_cell(CELLS[2]), 1279946884, 2.0, False,
+                    str(cuda), time.perf_counter())
+    limit = run.checks["train_residual"]["limit"]
+    assert run.judged[1]["residuals"][0] > 10 * limit
+    assert run.correct, run.checks
