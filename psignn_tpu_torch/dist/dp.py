@@ -11,6 +11,10 @@ aux values and the adjoint solve's (lowest, nstep) over the world
 (``dp_value_and_grad``).  ``DistributedDataParallel`` is not used: DS-GPS's
 unused ``laynorm`` holds no gradient in the port, which it would refuse,
 and it cannot carry the backward solve's stats.
+
+Span (``profiling.span``, recorded under a profiler): ``dp.allreduce``,
+the all-reduce of the flat buffer and the host's read of its means, so
+the rank's wait for the slowest rank is in it.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .. import profiling
 from ..deq import SolveStats
 from ..graphs import Graph, batch_graphs
 from .multihost import Mesh, global_mesh
@@ -82,14 +87,17 @@ def dp_value_and_grad(loss_fn: Callable, mesh: Mesh, sink: bool = False):
             extra = [float(stats.lowest), float(stats.nstep)]
         # the count of gradients: every rank must send the same buffer
         tail = loss.new_tensor([*extra, float(len(params))])
-        flat = mesh.all_reduce(torch.cat(
-            [p.grad.reshape(-1) for p in params] + [loss.detach().reshape(1)]
-            + [v.reshape(-1) for v in vals.values()] + [tail]))
-        n = 0
+        n = sum(p.numel() for p in params)
+        with profiling.span("dp.allreduce"):
+            flat = mesh.all_reduce(torch.cat(
+                [p.grad.reshape(-1) for p in params]
+                + [loss.detach().reshape(1)]
+                + [v.reshape(-1) for v in vals.values()] + [tail]))
+            host = (flat[n:] / mesh.world).cpu().numpy()
+        i = 0
         for p in params:
-            p.grad.copy_(flat[n:n + p.numel()].view_as(p) / mesh.dp)
-            n += p.numel()
-        host = (flat[n:] / mesh.world).cpu().numpy()
+            p.grad.copy_(flat[i:i + p.numel()].view_as(p) / mesh.dp)
+            i += p.numel()
         if round(float(host[-1])) != len(params):
             raise RuntimeError("ranks differ in which parameters have "
                                "gradients")

@@ -18,11 +18,13 @@ seed (``split_dataset``, which orders DSS's parts train | test | val), and
 its test part is answered in batches of ``--batch_size``; the table is
 printed and, with ``--out``, written to ``test_metrics.json``.  The JAX
 CLI reads ``data/`` unless told otherwise; here the table runs only when a
-dataset is named.  ``--sweep`` builds Dirichlet samples (2-column problem
-data, no normals; DSS's A′ form as well for a DSS checkpoint), so it takes
-a Dirichlet checkpoint only; so does ``--zoo``, which answers each of the
-12 shapes of ``geometries`` (hsize 0.08) and, with ``--out``, writes
-``geometry_zoo.json``.  ``--pallas`` puts the sweep's and the zoo's
+dataset is named.  ``--variant`` must name the checkpoint's boundary
+conditions.  ``--sweep`` builds samples of that variant: Dirichlet ones
+(2-column problem data, no normals; DSS's A′ form as well for a DSS
+checkpoint), or, with ``--variant mixed``, mixed blob meshes and their
+mixed samples (3-column problem data, normals).  ``--zoo`` answers each
+of the 12 shapes of ``geometries`` (hsize 0.08), Dirichlet only, and,
+with ``--out``, writes ``geometry_zoo.json``.  ``--pallas`` puts the sweep's and the zoo's
 samples in reverse Cuthill-McKee node order, as JAX's switch of the same
 name does: 1 on, 0 off, -1 (default) on when the device is a card, off on
 the CPU, as JAX's default follows its backend.  The test-split table keeps
@@ -67,8 +69,8 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=50)
     p.add_argument("--out", type=str, default="")
     p.add_argument("--sweep", action="store_true",
-                   help="run the growing-geometry radius sweep (Dirichlet "
-                        "checkpoints)")
+                   help="run the growing-geometry radius sweep on fresh "
+                        "meshes of --variant")
     p.add_argument("--zoo", action="store_true",
                    help="run the out-of-distribution geometry zoo "
                         "(Dirichlet checkpoints)")
@@ -101,13 +103,12 @@ def main(argv=None):
     predict, family, cfg, _ = load_predictor(args.ckpt, args.device)
     pallas = pallas_order(args.pallas, args.device)
     mode = getattr(cfg, "bc_mode", "dirichlet")     # DSS: Dirichlet only
-    if args.path_dataset is not None and mode != args.variant:
-        p.error(f"the checkpoint is a {mode} model; its test split "
-                f"needs --variant {mode}")
-    if (args.sweep or args.zoo) and mode != "dirichlet":
-        p.error(f"--sweep and --zoo build Dirichlet samples (2-column "
-                f"problem data, no normals); a {mode} checkpoint cannot "
-                f"answer them")
+    if mode != args.variant:
+        p.error(f"the checkpoint is a {mode} model; its test split and "
+                f"its sweep need --variant {mode}")
+    if args.zoo and mode != "dirichlet":
+        p.error(f"--zoo builds Dirichlet samples (2-column problem data, "
+                f"no normals); a {mode} checkpoint cannot answer them")
 
     def u_only(graph):
         out = predict(graph)
@@ -134,7 +135,7 @@ def main(argv=None):
         summary = growing_geometry_sweep(
             {family: predict}, radii=args.radii, n_meshes=args.n_meshes,
             out_dir=args.out or None, device=args.device, families=forms,
-            pallas=pallas)
+            pallas=pallas, variant=mode)
         print(json.dumps(summary, indent=2, default=float))
 
     if args.zoo:

@@ -11,7 +11,10 @@ to ``{name}_results.csv``.  The zoo does the same on each shape of
 answers one sample from four starting points.  The predictor named
 ``dss`` answers the DSS form of each mesh's sample (A′, b′), every other
 one the Ψ-GNN form, which DS-GPS shares; both forms come from the same FEM
-solve, so asking for the DSS form draws no other random numbers.
+solve, so asking for the DSS form draws no other random numbers.  With
+``variant="mixed"`` the sweep draws mixed blob meshes (two Dirichlet and
+two Neumann arcs, ``meshgen.mixed_blob_mesh``) and answers their mixed
+Ψ-GNN samples, normals included; the mixed variant has no DSS form.
 """
 
 from __future__ import annotations
@@ -24,25 +27,43 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.fem import solve_poisson
-from ..data.meshgen import blob_mesh
+from ..data.fem import solve_poisson, solve_poisson_mixed
+from ..data.meshgen import blob_mesh, mixed_blob_mesh
 from ..data.reader import dss_sample_from_fem, psignn_sample_from_fem
 from ..graphs import Graph, batch_graphs
 from .metrics import errors_batch
 
 SAMPLE_FORMS = {"psignn": psignn_sample_from_fem, "dss": dss_sample_from_fem}
+VARIANTS = ("dirichlet", "mixed")
+
+
+def _check_variant(variant: str, families: Sequence[str]) -> None:
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, not "
+                         f"{variant!r}")
+    if variant == "mixed" and set(families) != {"psignn"}:
+        raise ValueError(f"the mixed variant has the Ψ-GNN sample form "
+                         f"only, not {tuple(families)}")
 
 
 def build_data(mesh, radius: float, rng=None,
                families: Sequence[str] = ("psignn", "dss"),
-               pallas: bool = False) -> Dict[str, dict]:
+               pallas: bool = False, variant: str = "dirichlet"
+               ) -> Dict[str, dict]:
     """FEM-solve one mesh; ``{form: graph sample}`` for each sample form
     in ``families`` (``psignn``, ``dss``), each in reverse Cuthill-McKee
     node order with ``pallas`` (JAX ``sweep.py:28-46``; JAX's
     ``_batch_for_eval`` also attaches its kernels' packings then, which
-    every port graph carries)."""
-    s = solve_poisson(mesh, radius, rng)
-    out = {f: SAMPLE_FORMS[f](s) for f in families}
+    every port graph carries).  ``variant="mixed"`` solves the mixed
+    problem of a mixed mesh (``fem.solve_poisson_mixed``) into the mixed
+    Ψ-GNN sample, whose normals the node order permutes with the rest."""
+    _check_variant(variant, families)
+    if variant == "mixed":
+        out = {"psignn": psignn_sample_from_fem(
+            solve_poisson_mixed(mesh, radius, rng), variant="mixed")}
+    else:
+        s = solve_poisson(mesh, radius, rng)
+        out = {f: SAMPLE_FORMS[f](s) for f in families}
     if pallas:
         from ..dist.partition import rcm_ordered
         out = {f: rcm_ordered(smp) for f, smp in out.items()}
@@ -89,13 +110,17 @@ def growing_geometry_sweep(
         radii: Sequence[float] = (0.6, 1.0, 2.0, 4.0, 5.0),
         n_meshes=3, hsize: float = 0.08, seed: int = 0,
         out_dir: Optional[str] = None, device=None, warmup: bool = True,
-        families: Sequence[str] = ("psignn", "dss"), pallas: bool = False
+        families: Sequence[str] = ("psignn", "dss"), pallas: bool = False,
+        variant: str = "dirichlet"
         ) -> Dict[str, Dict[float, Dict[str, float]]]:
     """The radius sweep: ``n_meshes`` (an int, or one count per radius)
     fresh meshes per radius, every predictor on every mesh, means per
     radius.  ``families`` are the sample forms built for each mesh, in
-    RCM node order with ``pallas``.  Graphs go to ``device`` (default:
-    ``default_device()``)."""
+    RCM node order with ``pallas``; ``variant="mixed"`` draws mixed meshes
+    and mixed samples, for the mixed Ψ-GNN.  Graphs go to ``device``
+    (default: ``default_device()``)."""
+    _check_variant(variant, families)
+    draw = mixed_blob_mesh if variant == "mixed" else blob_mesh
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     acc: Dict[str, Dict[float, List[Dict[str, float]]]] = {
@@ -107,8 +132,8 @@ def growing_geometry_sweep(
 
     for radius in radii:
         for _ in range(counts[radius]):
-            mesh = blob_mesh(radius=radius, hsize=hsize, rng=rng)
-            data = build_data(mesh, radius, rng, families, pallas)
+            mesh = draw(radius=radius, hsize=hsize, rng=rng)
+            data = build_data(mesh, radius, rng, families, pallas, variant)
             graphs = {k: batch_graphs([v], device=device)
                       for k, v in data.items()}
             for name, m in test_sample(predictors, graphs, warmup).items():

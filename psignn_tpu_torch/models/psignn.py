@@ -28,17 +28,22 @@ Port of ``psignn_tpu/models/psignn.py`` (``PsignnConfig``, ``psignn_init``,
   needs kept, and the explicit VJP v ↦ Jᵀv in h (JAX's ``vjp_fn``) as
   plain tensor operations and the backward kernel, which the adjoint solve
   runs (``deq.deq_attach``).
+
+``F_CALLS`` counts the evaluations of f_θ (``UpdateFunction.forward``
+calls) in Python; it is in ``loop.COUNTERS``, so a replayed CUDA graph
+advances it by what its capture counted.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
-from .. import profiling
+from .. import loop, profiling
 from ..deq import (AdjointSolve, DEQConfig, SolveStats, deq_solve,
                    fixed_point_forward)
 from ..graphs import Graph
@@ -47,6 +52,11 @@ from ..ops import (message_passing, message_passing_vjp, mse_masked,
                    mse_masked_per_graph, mse_masked_stacked, residual_loss,
                    residual_loss_stacked, residual_per_graph)
 from ..solvers import Lanes
+
+# Evaluations of f_θ since the process started (the loop's replays
+# included).
+F_CALLS = 0
+loop.COUNTERS.append((sys.modules[__name__], "F_CALLS"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +136,8 @@ class UpdateFunction(nn.Module):
 
     def forward(self, h: torch.Tensor, h_initial: torch.Tensor,
                 graph: Graph) -> torch.Tensor:
+        global F_CALLS
+        F_CALLS += 1
         self._check_graph(graph)
         last = len(self.layers) - 1
         for k, layer in enumerate(self.layers):
